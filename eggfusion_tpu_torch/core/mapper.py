@@ -1,0 +1,637 @@
+"""Mapping backend: keyframing, surfel spawning, fusion orchestration and
+sliding-window map optimization (port of `eggfusion_tpu/core/mapper.py`,
+in part).
+
+Ported: `MapperConfig`, Adam and the losses, `KeyFrame` /
+`KeyFrameManager`, and in `Mapping` the per-frame `map_update`, `opt_step`,
+spawn sampling, the binning cache, `mapping`, the adaptive model cap, map
+maintenance (prune + compact), the amortized and burst optimization
+schedules. Not ported (the constructor raises where a config asks for
+them): the capacity ladder and its background precompiles (the map here is
+always `Viewer.max_surfels_num` slots), `settled_skip`, `model_view_down`
+> 1, the multi-device window step, and `keyframe_optimization`.
+
+Device scalars the host needs (fusion stats, losses, pose deltas, map
+counts) are copied asynchronously and read `count_lag` frames later, as in
+the JAX module. The surfel map is updated in place where the JAX code
+donates it.
+"""
+from __future__ import annotations
+
+from collections import deque
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from eggfusion_tpu_torch.core import surfels as sf
+from eggfusion_tpu_torch.ops import fusion
+from eggfusion_tpu_torch.ops import raster_tile as rt
+from eggfusion_tpu_torch.utils.device import HostReadback
+
+
+class MapperConfig(NamedTuple):
+    """Static mapping configuration (see the JAX class for each field)."""
+
+    local_map_iter: int = 3
+    local_map_iter_init: int = 20
+    add_opacity_thres: float = 0.8
+    add_depth_thres: float = 0.05
+    sample_ratio: float = 0.025
+    sample_ratio_init: float = 0.2
+    init_scale_ratio: float = 2.0
+    fusion_dist_thres: float = 0.03
+    sw_optimize_freq: int = 6
+    sw_add_freq: int = 3
+    color_weight: float = 1.0
+    depth_weight: float = 1.0
+    normal_weight: float = 1.0
+    reg_weight: float = 10.0
+    reg_weight_n: float = 1.0
+    stable_confidence: float = 10.0
+    spawn_cap: int = 32768
+    spawn_cap_init: int = 262144
+    border_pad: int = 7
+    prune_freq: int = 30
+    prune_max_age: int = 30
+    compact_frag: float = 0.125
+    opt_schedule: str = "amortized"
+    opt_tile_fraction: float = 1.0
+    opt_step_scale: float = 1.0
+
+
+OPT_FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity")
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def _adam_init(params: dict) -> dict:
+    return {k: (torch.zeros_like(v), torch.zeros_like(v)) for k, v in params.items()}
+
+
+def _adam_update(params: dict, grads: dict, moments: dict, step: torch.Tensor, lrs: dict):
+    """torch.optim.Adam semantics (lr per group, betas (0.9, 0.999), eps
+    1e-8); `step` is a device scalar, so nothing here syncs."""
+    new_params, new_moments = {}, {}
+    t = step.to(torch.float32) + 1.0
+    for k, p in params.items():
+        g = grads[k]
+        m, v = moments[k]
+        m = ADAM_B1 * m + (1 - ADAM_B1) * g
+        v = ADAM_B2 * v + (1 - ADAM_B2) * g * g
+        mhat = m / (1 - torch.pow(ADAM_B1, t))
+        vhat = v / (1 - torch.pow(ADAM_B2, t))
+        new_params[k] = p - lrs[k] * mhat / (torch.sqrt(vhat) + ADAM_EPS)
+        new_moments[k] = (m, v)
+    return new_params, new_moments
+
+
+def _masked_mean(x, mask):
+    num = torch.sum(torch.where(mask, x, torch.zeros_like(x)))
+    den = torch.clamp(torch.sum(mask.to(torch.float32)) * (x.numel() / mask.numel()), min=1.0)
+    return num / den
+
+
+def _safe_norm(x, dim=None, eps=1e-12):
+    """sqrt(sum(x^2) + eps): finite gradient at ||x|| = 0."""
+    if dim is None:
+        return torch.sqrt(torch.sum(x * x) + eps)
+    return torch.sqrt(torch.sum(x * x, dim=dim) + eps)
+
+
+def compute_image_loss(render_out: dict, kf: dict, mcfg: MapperConfig, pix_mask=None):
+    """Masked L1 color + L1 depth + (1 - cosine) normal of one keyframe."""
+    est_color = render_out["color"]
+    est_depth = render_out["depth"]
+    est_normal = render_out["normal"]
+    mask = (kf["rgb_mask"] & kf["geo_mask"])[..., 0]
+    if pix_mask is not None:
+        mask = mask & pix_mask
+    m3 = mask[..., None]
+    color_loss = _masked_mean(torch.abs(kf["color"] - est_color), m3)
+    depth_loss = _masked_mean(torch.abs(kf["depth"] - est_depth), mask[..., None])
+    cos = torch.sum(kf["normal"] * est_normal, dim=-1) / (
+        _safe_norm(kf["normal"], dim=-1) * _safe_norm(est_normal, dim=-1))
+    cos = torch.clamp(cos, -1 + 1e-6, 1 - 1e-6)
+    normal_loss = _masked_mean(torch.abs(1.0 - cos), mask)
+    return (mcfg.color_weight * color_loss + mcfg.depth_weight * depth_loss
+            + mcfg.normal_weight * normal_loss)
+
+
+def compute_reg_loss(s: sf.SurfelMap, geo_snapshot: dict, mcfg: MapperConfig):
+    """Drift regularizer vs the round-start geometry (global L2 position
+    norm + masked-mean normal cosine), pre-weighted by `reg_weight`."""
+    reg_pos = _safe_norm(geo_snapshot["position"] - s.xyz)
+    ncos = torch.sum(geo_snapshot["normal"] * s.get_normal(), dim=0)
+    ncos = torch.clamp(ncos, -1 + 1e-6, 1 - 1e-6)
+    reg_norm = _masked_mean(torch.abs(1.0 - ncos), s.active)
+    return mcfg.reg_weight * (reg_pos + mcfg.reg_weight_n * reg_norm)
+
+
+def compute_loss(render_out: dict, kf: dict, s: sf.SurfelMap, geo_snapshot: dict,
+                 mcfg: MapperConfig, pix_mask=None):
+    """Full mapping loss = image terms + drift regularizer."""
+    return compute_image_loss(render_out, kf, mcfg, pix_mask) + compute_reg_loss(s, geo_snapshot, mcfg)
+
+
+def _geo_snapshot(s: sf.SurfelMap) -> dict:
+    """Round-start geometry for the drift regularizer (fresh tensors: the
+    optimizer updates the map in place)."""
+    with torch.no_grad():
+        return {"position": s.xyz.clone(), "normal": s.get_normal()}
+
+
+def _relative_pose_mag(w2c_a, w2c_b):
+    """[rotation angle deg, translation dist] between two poses as ONE (2,)
+    device tensor."""
+    a = torch.linalg.inv_ex(w2c_a)[0]
+    b = torch.linalg.inv_ex(w2c_b)[0]
+    R = a[:3, :3].T @ b[:3, :3]
+    cos_theta = torch.clamp((R[0, 0] + R[1, 1] + R[2, 2] - 1) / 2, -1, 1)
+    dR = torch.rad2deg(torch.arccos(cos_theta))
+    dt = torch.linalg.vector_norm(a[:3, 3] - b[:3, 3])
+    return torch.stack([dR, dt])
+
+
+class RandomSource:
+    """The mapper's random draws: per-pixel spawn uniforms (one (H, W) draw
+    per frame time) and per-step tile-subset uniforms. Each draw reseeds a
+    device `torch.Generator` from (seed, counter), mirroring the JAX
+    module's `fold_in(key, counter)`: the same counter gives the same draw.
+    A test may substitute any object with these two methods."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.seed = int(seed)
+        self._gen = torch.Generator(device=self.device)
+
+    def _draw(self, stream: int, counter: int, shape) -> torch.Tensor:
+        self._gen.manual_seed((self.seed * 1_000_003 + stream * 7_919 + int(counter)) % (1 << 62))
+        return torch.rand(shape, generator=self._gen, device=self.device)
+
+    def spawn(self, time: int, height: int, width: int) -> torch.Tensor:
+        return self._draw(1, time, (height, width))
+
+    def tiles(self, step: int, n_tiles: int) -> torch.Tensor:
+        return self._draw(2, step, (n_tiles,))
+
+
+class KeyFrame:
+    """Snapshot of a frame and its maps (device-resident)."""
+
+    def __init__(self, frame, frame_map: dict, time: int, fid: int):
+        self.fid = fid
+        self.time = time
+        self.uid = frame.uid
+        self.w2c = frame.w2c_matrix()
+        self.intr = frame.intr
+        self.width, self.height = frame.width, frame.height
+        self.maps = {
+            "color": frame_map["color_map"],
+            "depth": frame_map["depth_map"],
+            "normal": frame_map["normal_map_c"],
+            "rgb_mask": frame_map["rgb_mask"],
+            "geo_mask": frame_map["geo_mask"],
+        }
+
+
+class KeyFrameManager:
+    """Keyframe policy: accept when rotation > check_keyframe_R deg or
+    translation > check_keyframe_t vs the previous keyframe; frame 0
+    always. The pose delta is observed each frame and consumed `check_lag`
+    frames later (async copy); holds the sliding window deque."""
+
+    def __init__(self, cfg):
+        self.keyframes: dict[int, KeyFrame] = {}
+        self.check_R = float(cfg.Tracking.check_keyframe_R)
+        self.check_t = float(cfg.Tracking.check_keyframe_t)
+        self.window_size = int(cfg.Tracking.sliding_window_size)
+        self.sliding_window: deque = deque(maxlen=self.window_size)
+        self.check_lag = max(1, int(cfg.Tracking.get("keyframe_check_lag", 2)))
+        self._kf_gen = 0
+        self._pending_mag: deque = deque(maxlen=16)  # (time, gen, HostReadback)
+
+    def observe(self, frame, time: int) -> None:
+        if not self.keyframes:
+            return
+        prev = self.keyframes[self.ids()[-1]]
+        mag = _relative_pose_mag(prev.w2c, frame.w2c_matrix())
+        self._pending_mag.append((time, self._kf_gen, HostReadback(mag)))
+
+    def _accept(self, kf) -> None:
+        self.keyframes[kf.uid] = kf
+        self._kf_gen += 1
+        self._pending_mag.clear()
+
+    def check_keyframe(self, frame, frame_map, time: int) -> bool:
+        kf = KeyFrame(frame, frame_map, time, len(self.keyframes))
+        if time == 0 or not self.keyframes:
+            self._accept(kf)
+            return True
+        ready = [m for (t, g, m) in self._pending_mag
+                 if g == self._kf_gen and t <= time - self.check_lag]
+        if ready:
+            mag = ready[-1].numpy()
+        else:  # no aged observation: synchronous check
+            mag = _relative_pose_mag(self.keyframes[self.ids()[-1]].w2c, kf.w2c).cpu().numpy()
+        if float(mag[0]) > self.check_R or float(mag[1]) > self.check_t:
+            self._accept(kf)
+            return True
+        return False
+
+    def ids(self):
+        return sorted(self.keyframes.keys())
+
+    def __len__(self):
+        return len(self.keyframes)
+
+
+class Mapping:
+    """Mapping orchestrator."""
+
+    def __init__(self, cfg, renderer, device, random_source=None):
+        m = cfg.Mapping
+        self.device = torch.device(device)
+        H = int(cfg.Dataset.Calibration.height)
+        W = int(cfg.Dataset.Calibration.width)
+        for key, ok in (("Tracking.model_view_down", int(cfg.Tracking.get("model_view_down", 1)) == 1),
+                        ("Mapping.settled_skip", not bool(m.get("settled_skip", False))),
+                        ("System.mesh_devices", int(cfg.System.get("mesh_devices", 0)) == 0)):
+            if not ok:
+                raise NotImplementedError(f"{key} is not ported")
+        self.mcfg = MapperConfig(
+            local_map_iter=int(m.local_map_iter),
+            local_map_iter_init=int(m.local_map_iter_init),
+            add_opacity_thres=float(m.add_opacity_thres),
+            add_depth_thres=float(m.add_depth_thres),
+            sample_ratio=float(m.sample_ratio),
+            sample_ratio_init=float(m.sample_ratio_init),
+            init_scale_ratio=float(m.init_scale_ratio),
+            fusion_dist_thres=float(m.fusion_dist_thres),
+            sw_optimize_freq=int(m.sw_optimize_freq),
+            sw_add_freq=int(m.sw_add_freq),
+            color_weight=float(m.color_weight),
+            depth_weight=float(m.depth_weight),
+            normal_weight=float(m.normal_weight),
+            reg_weight=float(m.reg_weight),
+            reg_weight_n=float(m.reg_weight_n),
+            spawn_cap=min(int(H * W * float(m.sample_ratio) * 2.0) + 256, H * W),
+            spawn_cap_init=min(int(H * W * float(m.sample_ratio_init) * 1.5) + 256, H * W),
+            opt_tile_fraction=float(m.get("opt_tile_fraction", 1.0)),
+            opt_step_scale=float(m.get("opt_step_scale", 1.0)),
+            prune_freq=int(m.get("prune_freq", 30)),
+            prune_max_age=int(m.get("prune_max_age", 30)),
+            compact_frag=float(m.get("compact_frag", 0.125)),
+            opt_schedule=str(m.get("opt_schedule", "amortized")),
+        )
+        if not self.mcfg.opt_step_scale > 0:
+            raise ValueError(f"Mapping.opt_step_scale must be > 0 (got {self.mcfg.opt_step_scale})")
+        if not 0 < self.mcfg.opt_tile_fraction <= 1:
+            raise ValueError(f"Mapping.opt_tile_fraction must be in (0, 1] (got {self.mcfg.opt_tile_fraction})")
+        self.gate_fusion = bool(m.get("gate_fusion_on_tracking", True))
+        self.gate_leak_streak = int(m.get("gate_leak_streak", 6))
+        self.scfg = sf.SurfelConfig(
+            capacity=int(cfg.Viewer.max_surfels_num),
+            max_sh_degree=int(cfg.Surfel.max_sh_degree),
+            active_sh_degree=int(cfg.Surfel.active_sh_degree),
+            init_opacity=float(cfg.Surfel.init_opacity),
+            alpha_p=float(cfg.Surfel.alpha_p),
+            alpha_n=float(cfg.Surfel.alpha_n),
+        )
+        self.sw_lrs = {
+            "xyz": float(m.position_lr),
+            "features_dc": float(m.feature_lr),
+            "features_rest": float(m.feature_lr) / 20.0,
+            "opacity": float(m.opacity_lr),
+            "scaling": float(m.scaling_lr),
+            "rotation": float(m.rotation_lr),
+        }
+        self.renderer = renderer
+        self.keyframe_manager = KeyFrameManager(cfg)
+        self.debug_nan = bool(cfg.System.get("check_nan", False))
+        self._system_cfg = {
+            "reco_normal_thres": float(cfg.System.reco_normal_threshold),
+            "reco_depth_thres": float(cfg.System.reco_depth_threshold),
+            "reco_opacity_thres": float(cfg.System.reco_opacity_threshold),
+            "depth_min": float(cfg.System.depth_range_min),
+            "depth_max": float(cfg.System.depth_range_max),
+            "nlevel": int(cfg.Tracking.pyramid_level),
+            "bilateral": str(cfg.System.get("bilateral_mode", "exact")),
+        }
+        self.surfels = sf.SurfelMap.empty(self.scfg, device=self.device)
+        self.count_lag = max(1, int(cfg.System.get("count_lag", 2)))
+        self._opt_acc = 0.0
+        self._opt_cache_map: dict = {}
+        self.opt_steps_total = 0
+        self._loss_pending: deque = deque()
+        self.opt_losses: dict[int, float] = {}
+        self._opt_geo = None
+        self._opt_moments = None
+        self._opt_stepno = None
+        self._host_step = 0  # host mirror of the Adam step counter (tile draws)
+        self._maint_pending = None
+        self._stats_pending: deque = deque()
+        self.fusion_stats: dict[int, tuple[int, int]] = {}
+        self._adaptive_cap = self.renderer.adaptive_model_cap
+        self.model_cap = self.renderer.raster_cap if self._adaptive_cap else 0
+        self._occ_streak = 0
+        self.cap_switches: list[tuple[int, int]] = []
+        if self._adaptive_cap:
+            capsub = self.renderer.model_cap_min // rt.N_SUB
+            near = capsub * 3 // 4
+            ceiling = near + (capsub - near) * rt.TAIL_STRIDE
+            self._occ_down = int(ceiling * 0.80)
+            self._occ_up = int(ceiling * 0.96)
+            self._occ_streak_need = 20
+        self.time = 0
+        self.random = random_source or RandomSource(int(cfg.System.get("seed", 0)), self.device)
+        self.use_tile_subset = (self.mcfg.opt_tile_fraction < 1.0 and self.renderer.backend == "pallas")
+
+    # ---------------------------------------------------------- programs --
+
+    def map_update(self, s: sf.SurfelMap, frame_map: dict, w2c, intr, time: int, width: int,
+                   height: int, first: bool, full_post: bool, model_cap: int = 0, conv=None):
+        """Per-frame map update: fuse, render the model once (full with
+        `full_post`, else geometry-only), then spawn where the model is thin
+        or in front of the measurement. Returns (s, model_map or None,
+        stats_vec (3,) int32 [fused, error, occupancy] or None)."""
+        from eggfusion_tpu_torch.system import postprocess_model_map
+
+        mcfg, scfg, sys_cfg = self.mcfg, self.scfg, self._system_cfg
+        depth = frame_map["depth_map"]
+        stats_vec = None
+        model_map = None
+        if conv is None:
+            conv = torch.ones((), dtype=torch.bool, device=self.device)
+        if not first:
+            geo_gate = frame_map["geo_mask"] & conv
+            s, stats = fusion.fuse_frame(
+                s, w2c, intr, frame_map["vertex_map_w"], frame_map["normal_map_w"],
+                frame_map["color_map"], depth, geo_gate, mcfg.fusion_dist_thres, scfg)
+            model = self.renderer.render_at(
+                sf.render_params(s), w2c, intr, width, height, geom_only=not full_post,
+                need_grad=False, cap=model_cap or None, with_occupancy=self._adaptive_cap)
+            occ = model.pop("max_occupancy", torch.full((), -1, dtype=torch.int32, device=self.device))
+            stats_vec = torch.stack([stats.fused_pixels, stats.error_pixels, occ.to(torch.int32)])
+            opacity_mask = model["opacity"] < mcfg.add_opacity_thres
+            depth_err = model["depth"] - depth
+            sample_mask = (opacity_mask | (depth_err > mcfg.add_depth_thres)) & (depth > 0) & conv
+            ratio = mcfg.sample_ratio
+            cap = mcfg.spawn_cap
+            if full_post:
+                rendered = {
+                    "render_color": model["color"],
+                    "render_depth": model["depth"],
+                    "render_normal": model["normal"],
+                    "render_opacity": model["opacity"],
+                }
+                model_map = postprocess_model_map(
+                    rendered, frame_map, intr, w2c, sys_cfg["reco_normal_thres"],
+                    sys_cfg["reco_depth_thres"], sys_cfg["reco_opacity_thres"],
+                    sys_cfg["depth_min"], sys_cfg["depth_max"], sys_cfg["nlevel"],
+                    bilateral=sys_cfg["bilateral"])
+        else:
+            sample_mask = depth > 0
+            ratio = mcfg.sample_ratio_init
+            cap = mcfg.spawn_cap_init
+        batch = self._sample_spawn(frame_map, sample_mask[..., 0], ratio, cap, time, intr)
+        s = sf.append_surfels(s, batch, time, scfg.init_opacity)
+        s = sf.update_stability(s, mcfg.stable_confidence)
+        return s, model_map, stats_vec
+
+    def _sample_spawn(self, frame_map, sample_mask, ratio: float, cap: int, time: int, intr):
+        """Bernoulli per-pixel spawn selection at probability `ratio` with a
+        border exclusion, compacted to at most one pixel per group of G
+        consecutive pixels (the max-u selected one) into a SpawnBatch."""
+        mcfg, scfg = self.mcfg, self.scfg
+        depth = frame_map["depth_map"][..., 0]
+        normal = frame_map["normal_map_w"]
+        H, W = depth.shape
+        pad = mcfg.border_pad
+        border = torch.zeros((H, W), dtype=torch.bool, device=self.device)
+        border[pad:-pad, pad:-pad] = True
+        invalid_normal = torch.all(normal == 0, dim=-1)
+        mask = sample_mask & border & ~invalid_normal
+
+        u = self.random.spawn(time, H, W).to(self.device)
+        sel = mask & (u < ratio)
+        HW = H * W
+        G = -(-HW // cap)
+        u_flat = torch.where(sel, u, torch.full_like(u, -1.0)).reshape(-1)
+        u_flat = torch.cat([u_flat, torch.full((cap * G - HW,), -1.0, device=self.device)])
+        groups = u_flat.reshape(cap, G)
+        gmax, g_arg = torch.max(groups, dim=1)
+        valid = gmax >= 0.0
+        idx = torch.clamp(torch.arange(cap, device=self.device) * G + g_arg, max=HW - 1)
+
+        fx, fy = intr[0], intr[1]
+        d = depth.reshape(-1)[idx]
+        p = frame_map["vertex_map_w"].reshape(-1, 3)[idx]
+        n = normal.reshape(-1, 3)[idx]
+        c = frame_map["color_map"].reshape(-1, 3)[idx]
+        dist = torch.stack([mcfg.init_scale_ratio * d / fx, mcfg.init_scale_ratio * d / fy,
+                            torch.zeros_like(d)], dim=-1)
+        s2p = torch.clamp((d * scfg.alpha_p) ** 2, min=1e-12)
+        s2n = torch.clamp((d * scfg.alpha_n) ** 2, min=1e-12)
+        eta = torch.cat([p / s2p[:, None], n / s2n[:, None]], dim=-1)
+        return sf.SpawnBatch(xyz=p, normal=n, color=c, dist=dist, eta=eta,
+                             sigma2=torch.stack([s2p, s2n], dim=-1), valid=valid)
+
+    def opt_step(self, s: sf.SurfelMap, moments: dict, step: torch.Tensor, kf: dict, w2c, intr,
+                 geo_snapshot: dict, lrs: dict, width: int, height: int, cache=None):
+        """One render + loss + Adam step on one keyframe. The surfel fields
+        are updated in place; returns (s, moments, step + 1, loss)."""
+        params = {k: getattr(s, k).detach().requires_grad_(True) for k in OPT_FIELDS}
+        tile_keep = pix_mask = None
+        if self.use_tile_subset:
+            nt = rt.n_tiles_static(width, height)
+            tile_keep = self.random.tiles(int(self._host_step), nt).to(self.device) < self.mcfg.opt_tile_fraction
+            pix_mask = rt.tile_pixel_mask(tile_keep, width, height)
+        with torch.enable_grad():
+            s2 = s.replace(**params)
+            out = self.renderer.render_at(sf.render_params(s2), w2c, intr, width, height,
+                                          cache=cache, tile_keep=tile_keep,
+                                          cap=self.renderer.opt_raster_cap)
+            loss = compute_loss(out, kf, s2, geo_snapshot, self.mcfg, pix_mask)
+            grads = dict(zip(OPT_FIELDS, torch.autograd.grad(loss, [params[k] for k in OPT_FIELDS])))
+        with torch.no_grad():
+            new_params, moments = _adam_update({k: v.detach() for k, v in params.items()}, grads,
+                                               moments, step, lrs)
+            for k in OPT_FIELDS:
+                getattr(s, k).copy_(new_params[k])
+        self._host_step += 1
+        return s, moments, step + 1, loss.detach()
+
+    def bin_cache(self, s: sf.SurfelMap, w2c, intr, width: int, height: int):
+        """Tile binning of the map from a keyframe, at the optimization cap."""
+        with torch.no_grad():
+            return self.renderer.precompute_cache(sf.render_params(s), w2c, intr, width, height,
+                                                  cap=self.renderer.opt_raster_cap)
+
+    # -------------------------------------------------------------- host --
+
+    def mapping(self, frame, frame_map: dict, fail_streak: int = 0) -> dict | None:
+        """Per-frame mapping entry. Returns the postprocess model map when
+        this frame's map update produced it, None on burst-schedule
+        optimization frames (the caller renders after the optimization)."""
+        first = self.time == 0
+        amortized = self.mcfg.opt_schedule == "amortized"
+        opt_frame = self.time % self.mcfg.sw_optimize_freq == 0
+        full_post = True if amortized else not opt_frame
+        leak = fail_streak >= self.gate_leak_streak > 0
+        suspect = 0 < fail_streak and not leak
+        conv = None
+        if self.gate_fusion and not leak:
+            conv = getattr(frame, "tracking_map_ok", getattr(frame, "tracking_converged", None))
+        with torch.no_grad():
+            self.surfels, model_map, stats_vec = self.map_update(
+                self.surfels, frame_map, frame.w2c_matrix(), frame.intr, self.time,
+                frame.width, frame.height, first, full_post, model_cap=self.model_cap, conv=conv)
+        if stats_vec is not None:
+            self._stats_pending.append((self.time, HostReadback(stats_vec)))
+        while self._stats_pending and self._stats_pending[0][0] <= self.time - self.count_lag:
+            t, ref = self._stats_pending.popleft()
+            v = ref.numpy()
+            self.fusion_stats[t] = (int(v[0]), int(v[1]))
+            if int(v[2]) >= 0:
+                self._observe_occupancy(int(v[2]))
+
+        if self._maint_pending is not None:
+            self._maintain_finish()
+        if self.mcfg.prune_freq > 0 and self.time > 0 and self.time % self.mcfg.prune_freq == 0:
+            self.maintain_map(defer=True)
+
+        if self.time % self.mcfg.sw_add_freq == 0 and not suspect:
+            self.keyframe_manager.sliding_window.append(KeyFrame(frame, frame_map, self.time, -1))
+        if suspect:
+            pass  # no keyframe decisions from a failure-streak pose
+        elif opt_frame:
+            self.keyframe_manager.check_keyframe(frame, frame_map, self.time)
+        else:
+            self.keyframe_manager.observe(frame, self.time)
+        if first or not amortized:
+            if opt_frame:
+                self.frame_batch_optimization(frame)
+        else:
+            self._amortized_opt()
+        self.time += 1
+        return model_map
+
+    def _observe_occupancy(self, occ: int) -> None:
+        """Adaptive model-render cap: drop to model_cap_min after a streak
+        of healthy readings, escalate back at once near the ceiling."""
+        if not self._adaptive_cap:
+            return
+        full = self.renderer.raster_cap
+        if occ >= self._occ_up:
+            self._occ_streak = 0
+            if self.model_cap != full:
+                self.model_cap = full
+                self.cap_switches.append((self.time, full))
+        elif occ < self._occ_down:
+            self._occ_streak += 1
+            if self.model_cap != self.renderer.model_cap_min and self._occ_streak >= self._occ_streak_need:
+                self.model_cap = self.renderer.model_cap_min
+                self.cap_switches.append((self.time, self.model_cap))
+        else:
+            self._occ_streak = 0
+
+    def maintain_map(self, defer: bool = False) -> None:
+        """Cull error-dominated / stale unstable surfels, then compact when
+        fragmentation exceeds `compact_frag` of capacity. `defer` reads the
+        two counts `count_lag` + 1 frames later."""
+        with torch.no_grad():
+            self.surfels = fusion.prune_unstable(self.surfels, self.scfg, self.time, self.mcfg.prune_max_age)
+            cnt = self.surfels.count.clone()
+            act = self.surfels.num_active()
+        if defer:
+            self._maint_pending = (self.time, HostReadback(cnt), HostReadback(act))
+            return
+        self._maintain_decide(int(cnt), int(act))
+
+    def _maintain_finish(self) -> None:
+        t, cnt, act = self._maint_pending
+        if self.time - t <= self.count_lag:
+            return
+        self._maint_pending = None
+        self._maintain_decide(int(cnt.numpy()), int(act.numpy()))
+
+    def _maintain_decide(self, count: int, n_active: int) -> None:
+        if count - n_active > self.mcfg.compact_frag * self.surfels.capacity:
+            with torch.no_grad():
+                self.surfels = sf.compact_surfels(self.surfels)
+            # compaction permutes slots: cached binning / Adam moments refer
+            # to the old slot order
+            self._opt_cache_map = {}
+            self._opt_moments = None
+
+    def _amortized_opt(self) -> None:
+        """local_map_iter * |window| steps per sw_optimize_freq frames, run
+        1-2 at a time against a rotating window member whose tile binning is
+        cached for its stay in the window."""
+        window = list(self.keyframe_manager.sliding_window)
+        if not window:
+            return
+        mcfg = self.mcfg
+        per_frame = mcfg.local_map_iter / mcfg.sw_optimize_freq * len(window) * mcfg.opt_step_scale
+        self._opt_acc += per_frame
+        n = int(self._opt_acc)
+        if n == 0:
+            return
+        self._opt_acc -= n
+        if self._opt_moments is None or self.time % mcfg.sw_optimize_freq == 0:
+            self._opt_moments = _adam_init({k: getattr(self.surfels, k) for k in OPT_FIELDS})
+            self._opt_stepno = torch.zeros((), dtype=torch.int32, device=self.device)
+            self._host_step = 0
+            self._opt_geo = _geo_snapshot(self.surfels)
+        rot = max(1, mcfg.sw_optimize_freq // len(window))
+        kf = window[(self.time // rot) % len(window)]
+        live_uids = {k.uid for k in window}
+        for uid in [u for u in self._opt_cache_map if u not in live_uids]:
+            del self._opt_cache_map[uid]
+        cache = self._opt_cache_map.get(kf.uid)
+        if cache is None:
+            cache = self.bin_cache(self.surfels, kf.w2c, kf.intr, kf.width, kf.height)
+            self._opt_cache_map[kf.uid] = cache
+        for _ in range(n):
+            self.surfels, self._opt_moments, self._opt_stepno, loss = self.opt_step(
+                self.surfels, self._opt_moments, self._opt_stepno, kf.maps, kf.w2c, kf.intr,
+                self._opt_geo, self.sw_lrs, kf.width, kf.height, cache)
+            if self.debug_nan and not np.isfinite(float(loss)):
+                raise FloatingPointError(f"NaN/Inf map-optimization loss at keyframe uid={kf.uid}")
+        self._note_opt(n, loss)
+
+    def _note_opt(self, n: int, loss) -> None:
+        self.opt_steps_total += n
+        self._loss_pending.append((self.time, HostReadback(loss)))
+        while self._loss_pending and self._loss_pending[0][0] <= self.time - self.count_lag:
+            t, ref = self._loss_pending.popleft()
+            self.opt_losses[t] = float(ref.numpy())
+
+    def _optimize(self, runs: list, lrs: dict):
+        """Adam over a schedule of (keyframe, n_iters) runs; multi-step runs
+        bin once."""
+        geo_snapshot = _geo_snapshot(self.surfels)
+        moments = _adam_init({k: getattr(self.surfels, k) for k in OPT_FIELDS})
+        step = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._host_step = 0
+        loss = torch.full((), float("nan"), device=self.device)
+        for kf, n in runs:
+            cache = self.bin_cache(self.surfels, kf.w2c, kf.intr, kf.width, kf.height) if n > 1 else None
+            for _ in range(n):
+                self.surfels, moments, step, loss = self.opt_step(
+                    self.surfels, moments, step, kf.maps, kf.w2c, kf.intr, geo_snapshot, lrs,
+                    kf.width, kf.height, cache)
+                self.opt_steps_total += 1
+                if self.debug_nan and not np.isfinite(float(loss)):
+                    raise FloatingPointError(f"NaN/Inf map-optimization loss at keyframe uid={kf.uid}")
+        return loss
+
+    def frame_batch_optimization(self, frame):
+        """local_map_iter steps on each window member (local_map_iter_init
+        at frame 0)."""
+        window = list(self.keyframe_manager.sliding_window)
+        if not window:
+            return float("nan")
+        per_kf = self.mcfg.local_map_iter if self.time > 0 else self.mcfg.local_map_iter_init
+        return self._optimize([(kf, per_kf) for kf in window], self.sw_lrs)

@@ -1,0 +1,190 @@
+"""Frame-to-model dense camera tracking (port of
+`eggfusion_tpu/core/tracker.py`).
+
+Coarse-to-fine pyramid Gauss-Newton over point-to-plane ICP + weighted
+photometric terms, with the reference's commit rule: the dense result is
+committed only if an iteration converged, otherwise the pose falls back to
+the seed delta. The per-level iterations are a Python loop of a fixed count
+(the JAX `while_loop` with `early_exit` off) and nothing in it reads the
+device: the converged flag stays a device tensor, and the host reads it
+`readback_lag` frames late through an async copy.
+"""
+from __future__ import annotations
+
+from collections import deque
+from typing import NamedTuple, Tuple
+
+import torch
+
+from eggfusion_tpu_torch.geometry import lie
+from eggfusion_tpu_torch.ops import reduce as gn
+from eggfusion_tpu_torch.utils.device import HostReadback
+
+
+class TrackerConfig(NamedTuple):
+    """Tracking configuration (the config's `Tracking:` section)."""
+
+    pyramid_level: int = 3
+    pyramid_iters: Tuple[int, ...] = (3, 3, 3)
+    angle_threshold: float = 20.0  # degrees
+    distance_threshold: float = 0.1
+    residual_thres: float = 0.01
+    dx_threshold: float = 0.001
+    use_rgb: bool = True
+    rgb_weight: float = 1e-4
+    lm_damping: float = 1e-6
+    solver_stride: int = 1
+    solver_stride_fine: int = 0
+    commit_min_count: int = 0
+    commit_rms_m: float = 0.005
+    min_valid_frac: float = 0.02
+
+
+def dense_track(pyr_model, pyr_frame, init_delta: torch.Tensor, cfg: TrackerConfig):
+    """Full coarse-to-fine GN optimization, coarse (level L-1) to fine (0).
+
+    Returns (delta (4, 4), converged (bool tensor), icp_rms_m, icp_count)."""
+    dev = init_delta.device
+    delta = init_delta
+    converged = torch.zeros((), dtype=torch.bool, device=dev)
+    last_rms = torch.full((), float("inf"), device=dev)
+    last_n = torch.zeros((), device=dev)
+    for l in range(cfg.pyramid_level):
+        level = cfg.pyramid_level - 1 - l
+        model_lvl = pyr_model[level]
+        frame_lvl = pyr_frame[level]
+        stride = (cfg.solver_stride_fine if level == 0 and cfg.solver_stride_fine > 0
+                  else cfg.solver_stride)
+        Hl, Wl = model_lvl.intensity.shape[:2]
+        min_n = max(1.0, cfg.min_valid_frac * (Hl // stride) * (Wl // stride))
+        pack = gn.sampling_pack(frame_lvl)
+        for _ in range(cfg.pyramid_iters[l]):
+            A, b, n, r2_icp, n_icp = gn.build_normal_equations(
+                model_lvl, frame_lvl, delta, cfg.angle_threshold, cfg.distance_threshold,
+                cfg.use_rgb, cfg.rgb_weight, stride=stride, pack=pack)
+            dx = gn.solve_gn(A, b, cfg.lm_damping)
+            delta = lie.update_transform(delta, dx)
+            residual_est = torch.linalg.vector_norm(b) / torch.sqrt(torch.clamp(n, min=1.0))
+            dx_norm = torch.linalg.vector_norm(dx)
+            last_rms = torch.sqrt(r2_icp / torch.clamp(n_icp, min=1.0))
+            last_n = n_icp
+            # n > min_n: an empty solve must not count as converged
+            converged = converged | ((residual_est < cfg.residual_thres)
+                                     & (dx_norm < cfg.dx_threshold) & (n > min_n))
+    return delta, converged, last_rms, last_n
+
+
+def _motion_delta(prev_w2c, prev_prev_w2c, damping: float):
+    """Damped constant-velocity seed: Exp(damping * Log(T_{k-1} T_{k-2}^-1))."""
+    rel = prev_w2c @ lie.invert_se3(prev_prev_w2c)
+    xi = lie.SE3_to_se3(rel)
+    return lie.se3_to_SE3(damping * xi)
+
+
+def dense_track_pose(pyr_model, pyr_frame, seed_delta, prev_transform, cfg: TrackerConfig):
+    """`dense_track` + on-device commit: returns (new w2c, committed, rms,
+    n_icp); the commit is a select, no host readback."""
+    delta, converged, rms, n_icp = dense_track(pyr_model, pyr_frame, seed_delta, cfg)
+    committed = converged
+    if cfg.commit_min_count > 0:
+        committed = committed | ((rms < cfg.commit_rms_m) & (n_icp >= cfg.commit_min_count))
+    curr = torch.where(committed, delta @ prev_transform, seed_delta @ prev_transform)
+    return curr, committed, rms, n_icp
+
+
+class Tracker:
+    """Host-side tracking orchestrator: frame 0 and `only_mapping` take the
+    GT pose; the dense result is committed only on convergence, seeded by a
+    damped constant-velocity motion model; converged flags are folded into a
+    failure streak `readback_lag` frames late."""
+
+    def __init__(self, cfg, device):
+        t = cfg.Tracking
+        self.device = torch.device(device)
+        if int(cfg.System.get("mesh_devices", 0)) >= 1:
+            raise NotImplementedError("the port has no multi-device tracking (System.mesh_devices)")
+        if int(t.get("model_view_down", 1)) != 1:
+            raise NotImplementedError("the port renders the model view at full size (model_view_down 1)")
+        if bool(t.get("use_sparse", False)):
+            raise NotImplementedError("the port has no sparse seed (Tracking.use_sparse)")
+        if bool(t.get("early_exit", False)):
+            raise NotImplementedError("the port runs every GN iteration (Tracking.early_exit off)")
+        self.config = TrackerConfig(
+            pyramid_level=int(t.pyramid_level),
+            pyramid_iters=tuple(int(i) for i in t.pyramid_iters),
+            angle_threshold=float(t.angle_threshold),
+            distance_threshold=float(t.distance_threshold),
+            residual_thres=float(t.residual_thres),
+            dx_threshold=float(t.dx_threshold),
+            use_rgb=bool(t.use_rgb),
+            rgb_weight=float(t.rgb_weight),
+            solver_stride=int(t.get("solver_stride", 2)),
+            solver_stride_fine=int(t.get("solver_stride_fine", 0)),
+            commit_min_count=int(t.get("commit_min_count", 0)),
+            min_valid_frac=float(t.get("min_valid_frac", 0.02)),
+            commit_rms_m=float(t.get("commit_rms_m", 0.005)),
+        )
+        self.only_mapping = bool(cfg.System.only_mapping)
+        self.use_motion_model = bool(t.get("use_motion_model", True))
+        self.motion_damping = float(t.get("motion_damping", 0.5))
+        self.recover_after = int(t.get("recover_after", 3))
+        self.chronic_fails = 0
+        self.gate_residual_factor = float(t.get("gate_residual_factor", 0.0))
+        self._fail_streak = 0
+        self.readback_lag = max(1, int(t.get("readback_lag", 3)))
+        self._conv_pending: deque = deque()  # (HostReadback of converged, pose)
+        self.last_good_w2c = None
+        self.initialized = False
+        self._prev_w2c = None
+        self._prev_prev_w2c = None
+
+    def _seed_delta(self):
+        """Initial delta: identity mid-failure-streak, else constant velocity."""
+        eye = torch.eye(4, dtype=torch.float32, device=self.device)
+        if self._fail_streak > 0:
+            return eye
+        if self.use_motion_model and self._prev_prev_w2c is not None:
+            return _motion_delta(self._prev_w2c, self._prev_prev_w2c, self.motion_damping)
+        return eye
+
+    def _update_fail_streak(self) -> None:
+        """Fold in converged flags at least `readback_lag` frames old."""
+        while len(self._conv_pending) >= self.readback_lag:
+            conv, pose = self._conv_pending.popleft()
+            if bool(conv.numpy()):
+                self._fail_streak = 0
+                self.chronic_fails = 0
+                self.last_good_w2c = pose
+            else:
+                self._fail_streak += 1
+                self.chronic_fails += 1
+
+    def needs_recovery(self) -> bool:
+        self._update_fail_streak()
+        return self.recover_after > 0 and self._fail_streak >= self.recover_after
+
+    def tracking(self, frame, model_map) -> None:
+        if self.only_mapping or not self.initialized:
+            self.initialized = True
+            frame.update_transform_gt()
+            self._push_pose(frame.w2c_matrix())
+            return
+        prev_transform = model_map["transform"]
+        seed_delta = self._seed_delta()
+        curr, converged, rms, n_icp = dense_track_pose(
+            model_map["pyramid"], frame.pyramid, seed_delta, prev_transform,
+            self.config)
+        frame.tracking_converged = converged  # device scalar
+        if self.gate_residual_factor > 0:
+            frame.tracking_map_ok = converged | (
+                (rms < self.gate_residual_factor * self.config.commit_rms_m) & (n_icp > 0))
+        else:
+            frame.tracking_map_ok = converged
+        if self.recover_after > 0:
+            self._conv_pending.append((HostReadback(converged), curr))
+        frame.update_transform_matrix(curr)
+        self._push_pose(curr)
+
+    def _push_pose(self, w2c):
+        self._prev_prev_w2c = self._prev_w2c
+        self._prev_w2c = w2c.to(torch.float32)

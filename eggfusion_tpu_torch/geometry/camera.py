@@ -1,0 +1,53 @@
+"""Pinhole camera model (port of `eggfusion_tpu/geometry/camera.py`).
+
+`CameraIntrinsics` is a hashable NamedTuple of Python floats; `as_tensor`
+puts (fx, fy, cx, cy) on a device.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+
+def fov2focal(fov: float, pixels: float) -> float:
+    return pixels / (2.0 * math.tan(fov / 2.0))
+
+
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))
+
+
+class CameraIntrinsics(NamedTuple):
+    """Pinhole intrinsics."""
+
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    width: int
+    height: int
+
+    @property
+    def fovx(self) -> float:
+        return focal2fov(self.fx, self.width)
+
+    @property
+    def fovy(self) -> float:
+        return focal2fov(self.fy, self.height)
+
+    def scaled(self, factor: float) -> "CameraIntrinsics":
+        """Intrinsics of a pyramid level downsampled by `factor` (e.g. 2**l)."""
+        return CameraIntrinsics(
+            fx=self.fx / factor,
+            fy=self.fy / factor,
+            cx=self.cx / factor,
+            cy=self.cy / factor,
+            width=int(self.width // factor),
+            height=int(self.height // factor),
+        )
+
+    def as_tensor(self, device=None, dtype=torch.float32) -> torch.Tensor:
+        """(fx, fy, cx, cy) as a tensor on `device`."""
+        return torch.tensor([self.fx, self.fy, self.cx, self.cy], dtype=dtype, device=device)

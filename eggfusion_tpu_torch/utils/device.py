@@ -1,0 +1,53 @@
+"""Device selection and host readbacks that do not stall the device queue.
+
+No JAX counterpart: JAX picks its platform globally and starts async copies
+with `Array.copy_to_host_async`; here both are explicit.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `device` if given, else CUDA.
+
+    Raises when CUDA is asked for (explicitly or by default) and no GPU is
+    present — entry points never fall back to the CPU silently; tests pass
+    `device="cpu"`. On CUDA, float32 convolutions and matrix products are
+    pinned to full float32 (no TF32): the JAX reference computes in float32.
+    """
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "eggfusion_tpu_torch runs on CUDA by default and no GPU is "
+                "available; pass device='cpu' to run on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+class HostReadback:
+    """A device tensor copied to the host without blocking the host thread.
+
+    On CUDA the copy goes into pinned memory on the current stream and an
+    event marks its end; `numpy()` waits only for that event, which by the
+    time a lagged consumer reads it (N frames later) has long passed — so
+    the frame loop never drains the device queue. On the CPU it is a copy.
+    """
+
+    def __init__(self, t: torch.Tensor):
+        t = t.detach()
+        self._event = None
+        if t.is_cuda:
+            self._buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._buf.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._buf = t.clone()
+
+    def numpy(self):
+        if self._event is not None:
+            self._event.synchronize()
+        return self._buf.numpy()

@@ -16,3 +16,8 @@ if os.environ.get("EGGFUSION_TEST_TPU") != "1":
 # persistent compile cache: the e2e tests are compile-bound on CPU
 jax.config.update("jax_compilation_cache_dir", os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips where torch.cuda.is_available() is False)")
