@@ -38,11 +38,11 @@ KSUB = 2  # candidate window, x, in sub-columns
 KY = 2  # candidate window, y, in tile rows
 BIN_RADIUS_MAX_X = (KSUB * SUB_W - 1) / 2
 BIN_RADIUS_MAX_Y = (KY * TILE_H - 1) / 2
-CHUNK = 16  # slot-groups per chunk (cap granularity; backward checkpoint period)
+CHUNK = 16  # slot-groups per chunk: the cap granularity of the JAX module
 DEPTH_BITS = 19
 DEPTH_FAR = 120.0
 TAIL_STRIDE = 4
-MAX_BWD_CAP = 2048  # the backward kernel keeps cap/4/CHUNK checkpoints per thread
+MAX_BWD_CAP = 2048  # the backward kernel holds a whole sub-column (cap / 4 slots) in shared memory
 
 # entry attribute layout (column of the (CAP, 16) slab)
 A_U, A_V = 0, 1
@@ -265,6 +265,55 @@ def _slot_alpha(a, xs, ys, vmask):
     return torch.where(alpha >= rc.ALPHA_EPS, alpha, torch.zeros_like(alpha))
 
 
+def cull_extent(entries):
+    """Half extents (half_w, half_h), in pixels, of the region around each
+    entry's centre (u, v) where its alpha can be nonzero: the kernels' row
+    cull (`csrc/composite_common.cuh::cull_rows`). `inf` where the entry is
+    never culled (a non-finite value, or a conic that is not safely positive
+    definite: det <= 4e-3 a c, a <= 0 or c <= 0), -1 where it is dead on
+    every pixel (op too small).
+
+    alpha >= ALPHA_EPS needs Q = a dx^2 + 2 b dx dy + c dy^2 <= tau =
+    2 ln(255 op); inside that ellipse |dx| <= sqrt(tau c / det) and |dy| <=
+    sqrt(tau a / det). tau is padded by 2e-3 of itself plus 1e-3 and each
+    extent by 1 px, so float rounding never puts a live pair outside."""
+    u, v, a, b, c, op = (entries[..., i] for i in (A_U, A_V, A_CA, A_CB, A_CC, A_OP))
+    det = a * c - b * b
+    finite = torch.isfinite(torch.stack([u, v, a, b, c, op, det])).all(dim=0)
+    cullable = finite & (a > 0) & (c > 0) & (det > 4e-3 * a * c)
+    tau = 2.0 * torch.log(255.0 * op)
+    taup = tau + 2e-3 * torch.abs(tau) + 1e-3
+    alive = taup >= 0  # False for NaN (op <= 0)
+    inf = torch.full_like(u, float("inf"))
+
+    def extent(num):
+        e = torch.where(alive, torch.sqrt(taup * num / det) + 1.0, torch.full_like(u, -1.0))
+        return torch.where(cullable, e, inf)
+
+    return extent(c), extent(a)
+
+
+def count_kept_pairs(entries, counts, tx_tiles: int, cap: int) -> int:
+    """Number of visited (pixel, slot) pairs in the rows the cull keeps: for
+    each visited slot whose column extent meets its 32-px sub-column, the
+    sub-column's 32 pixels of every row within its row extent (the
+    backward's granularity; the forward's warps take rows in pairs)."""
+    capsub = cap // N_SUB
+    n_tiles = entries.shape[0]
+    dev = entries.device
+    E = entries.reshape(n_tiles, capsub, N_SUB, N_ATTR)
+    hw, hh = cull_extent(E)
+    u, v = E[..., A_U], E[..., A_V]
+    tiles = torch.arange(n_tiles, device=dev)
+    x0, y0 = _tile_origin(tiles, tx_tiles)
+    sub_x0 = (x0[:, None] + torch.arange(N_SUB, device=dev)[None, :] * SUB_W).to(torch.float32)[:, None, :]
+    visited = torch.arange(capsub, device=dev)[None, :, None] < torch.clamp(counts, max=capsub)[:, None, :]
+    meets = visited & (u + hw >= sub_x0) & (u - hw <= sub_x0 + (SUB_W - 1))
+    ys = (y0[:, None] + torch.arange(TILE_H, device=dev)[None, :]).to(torch.float32)[:, None, None, :]
+    rows = ((v - hh)[..., None] <= ys) & ((v + hh)[..., None] >= ys)
+    return int((rows & meets[..., None]).sum()) * SUB_W
+
+
 def count_live_pairs(entries, counts, tx_tiles: int, cap: int) -> int:
     """Number of (pixel, slot) pairs a sweep visits whose alpha is nonzero.
     Only these need the weight, depth, accumulation and gradient work; the
@@ -399,16 +448,27 @@ def composite_fwd(entries, counts, intr, tx_tiles: int, cap: int, geom: bool = F
 
     CPU tensors take `composite_plain`; CUDA tensors launch the kernel of
     `csrc/composite_fwd.cu` (GEOM template for `geom`)."""
-    n_tiles, dev = _check_inputs(entries, counts, intr, tx_tiles, cap)
-    hp = (n_tiles // tx_tiles) * TILE_H
-    wp = tx_tiles * TILE_W
+    _n_tiles, dev = _check_inputs(entries, counts, intr, tx_tiles, cap)
     if dev.type == "cpu":
         return _split(_tiles_to_image(composite_plain(entries, counts, intr, tx_tiles, cap, geom), tx_tiles), geom)
     if dev.type != "cuda":
         raise ValueError(f"no compositor for device {dev}")
     from eggfusion_tpu_torch.ops import cuda_build
 
-    lib = cuda_build.load("composite_fwd")
+    out = _launch_fwd(cuda_build.load("composite_fwd"), entries, counts, intr, tx_tiles, cap, geom)
+    LAUNCHES["composite_geom" if geom else "composite_fwd"] += 1
+    return out
+
+
+def _launch_fwd(lib, entries, counts, intr, tx_tiles: int, cap: int, geom: bool):
+    """Launch the forward kernel of the loaded library `lib` on checked CUDA
+    inputs (the wrapper's launch; the checks launch a second build through
+    it)."""
+    from eggfusion_tpu_torch.ops import cuda_build
+
+    n_tiles, dev = entries.shape[0], entries.device
+    hp = (n_tiles // tx_tiles) * TILE_H
+    wp = tx_tiles * TILE_W
     entries, counts, intr = entries.contiguous(), counts.contiguous(), intr.contiguous()
     f32 = dict(dtype=torch.float32, device=dev)
     dep, opa, T = (torch.empty((hp, wp), **f32) for _ in range(3))
@@ -422,7 +482,6 @@ def composite_fwd(entries, counts, intr, tx_tiles: int, cap: int, geom: bool = F
         n_tiles, tx_tiles, cap, int(geom), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"composite_fwd kernel launch failed: {cuda_build.error_string(err)}")
-    LAUNCHES["composite_geom" if geom else "composite_fwd"] += 1
     return (dep, opa, T) if geom else (rgb, nrm, dep, opa, T)
 
 
@@ -449,14 +508,24 @@ def composite_bwd(entries, counts, intr, g_rgb, g_nrm, g_dep, g_opa, g_T, T_fin,
             raise ValueError(f"{name} must be float32 {shape} on {dev}, got {tuple(g.shape)} {g.dtype}")
     from eggfusion_tpu_torch.ops import cuda_build
 
-    lib = cuda_build.load("composite_bwd")
+    d_entries = _launch_bwd(cuda_build.load("composite_bwd"), entries, counts, intr, g_rgb, g_nrm, g_dep,
+                            g_opa, g_T, T_fin, tx_tiles, cap)
+    LAUNCHES["composite_bwd"] += 1
+    return d_entries
+
+
+def _launch_bwd(lib, entries, counts, intr, g_rgb, g_nrm, g_dep, g_opa, g_T, T_fin, tx_tiles: int, cap: int):
+    """Launch the backward kernel of the loaded library `lib` on checked
+    CUDA inputs (the wrapper's launch; the checks launch a second build
+    through it)."""
+    from eggfusion_tpu_torch.ops import cuda_build
+
     ins = [t.contiguous() for t in (counts, intr, entries, g_rgb, g_nrm, g_dep, g_opa, g_T, T_fin)]
     d_entries = torch.zeros_like(entries)
-    err = lib.egg_composite_bwd(*[_ptr(t) for t in ins], _ptr(d_entries),
-                                n_tiles, tx_tiles, cap, torch.cuda.current_stream(dev).cuda_stream)
+    err = lib.egg_composite_bwd(*[_ptr(t) for t in ins], _ptr(d_entries), entries.shape[0], tx_tiles, cap,
+                                torch.cuda.current_stream(entries.device).cuda_stream)
     if err:
         raise RuntimeError(f"composite_bwd kernel launch failed: {cuda_build.error_string(err)}")
-    LAUNCHES["composite_bwd"] += 1
     return d_entries
 
 

@@ -10,16 +10,20 @@ JAX). On a machine with an NVIDIA GPU:
 running only the port need not have.)
 
 Inputs are random entry slabs with ragged per-sub-column counts (zeros
-included, as tile subsets produce), at several capacities. Tolerances as in
+included, as tile subsets produce), at several capacities, and adversarial
+slabs for the kernels' row cull (tiny and elongated splats, near-singular
+conics, opacities at the 1/255 cut-off, centres off the row and off the
+sub-column), including one whose every entry is culled, and on these the
+kernels built without the cull, which must give the same bits. Tolerances as in
 `chip_smoke.py`: forward outputs 1e-4 of (1 + |value|) (expf and FMA
 contraction differ), backward 1e-3 of each gradient column's largest value
 (reduction order differs).
 """
-import numpy as np
 import pytest
 import torch
 
 from eggfusion_tpu_torch.ops import raster_tile as rt
+from eggfusion_tpu_torch.ops.raster_slabs import adversarial_slab, culled_slab, random_slab
 
 pytestmark = pytest.mark.cuda
 
@@ -31,39 +35,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _slab(cap, tx=2, ty=2, seed=0):
-    """Random but well-formed entries: splats inside their sub-column,
-    positive-definite conics, camera-facing normals, ragged counts."""
-    rng = np.random.default_rng(seed)
-    n_tiles = tx * ty
-    capsub = cap // rt.N_SUB
-    e = np.zeros((n_tiles, capsub, rt.N_SUB, rt.N_ATTR), np.float32)
-    t = np.arange(n_tiles)[:, None, None]
-    c = np.arange(rt.N_SUB)[None, None, :]
-    shape = (n_tiles, capsub, rt.N_SUB)
-    e[..., rt.A_U] = (t % tx) * rt.TILE_W + c * rt.SUB_W + rng.uniform(-8, 40, shape)
-    e[..., rt.A_V] = (t // tx) * rt.TILE_H + rng.uniform(-8, 40, shape)
-    e[..., rt.A_CA] = rng.uniform(0.01, 0.2, shape)
-    e[..., rt.A_CC] = rng.uniform(0.01, 0.2, shape)
-    e[..., rt.A_CB] = rng.uniform(-0.5, 0.5, shape) * np.sqrt(e[..., rt.A_CA] * e[..., rt.A_CC])
-    e[..., rt.A_OP] = rng.uniform(0.0, 1.0, shape)
-    e[..., rt.A_R:rt.A_B + 1] = rng.uniform(size=shape + (3,))
-    n = rng.normal(size=shape + (3,)) * 0.3 + [0, 0, -1]
-    e[..., rt.A_NX:rt.A_NZ + 1] = n / np.linalg.norm(n, axis=-1, keepdims=True)
-    e[..., rt.A_PX:rt.A_PY + 1] = rng.normal(size=shape + (2,)) * 0.3
-    e[..., rt.A_PZ] = np.sort(rng.uniform(0.5, 4.0, shape), axis=1)
-    counts = rng.integers(0, capsub + 1, (n_tiles, rt.N_SUB)).astype(np.int32)
-    counts[0, 0] = 0
-    counts[-1, -1] = capsub
-    entries = torch.from_numpy(e.reshape(n_tiles, cap, rt.N_ATTR))
-    intr = torch.tensor([300.0, 300.0, tx * rt.TILE_W / 2 - 0.5, ty * rt.TILE_H / 2 - 0.5])
-    return entries, torch.from_numpy(counts), intr, tx
-
-
-@pytest.mark.parametrize("geom", [False, True])
-@pytest.mark.parametrize("cap", [32, 256, 2048])
-def test_forward_kernel_matches_plain(cuda, cap, geom):
-    entries, counts, intr, tx = _slab(cap)
+def _check_forward(cuda, entries, counts, intr, tx, cap, geom):
     before = dict(rt.LAUNCHES)
     k_out = rt.composite_fwd(entries.to(cuda), counts.to(cuda), intr.to(cuda), tx, cap, geom=geom)
     name = "composite_geom" if geom else "composite_fwd"
@@ -73,11 +45,10 @@ def test_forward_kernel_matches_plain(cuda, cap, geom):
         k = k.cpu()
         assert torch.isfinite(k).all()
         assert float(((k - p).abs() / (1 + p.abs())).max()) <= 1e-4
+    return [k.cpu() for k in k_out]
 
 
-@pytest.mark.parametrize("cap", [32, 256, 1024, 2048])
-def test_backward_kernel_matches_plain(cuda, cap):
-    entries, counts, intr, tx = _slab(cap, seed=1)
+def _check_backward(cuda, entries, counts, intr, tx, cap):
     outs = rt.composite_fwd(entries, counts, intr, tx, cap)
     g = torch.Generator().manual_seed(2)
     cots = [torch.randn(o.shape, generator=g) for o in outs]
@@ -89,10 +60,85 @@ def test_backward_kernel_matches_plain(cuda, cap):
     scale = d_p.abs().amax(dim=(0, 1)).clamp(min=1e-30)
     assert float(((d_k - d_p).abs().amax(dim=(0, 1)) / scale)[:15].max()) <= 1e-3
     assert float(d_k[..., 15].abs().max()) == 0.0
+    return d_k
+
+
+@pytest.mark.parametrize("geom", [False, True])
+@pytest.mark.parametrize("cap", [32, 256, 1024, 2048, 4096])  # 4096: two staging windows
+def test_forward_kernel_matches_plain(cuda, cap, geom):
+    _check_forward(cuda, *random_slab(cap), cap, geom)
+
+
+@pytest.mark.parametrize("cap", [32, 256, 1024, 2048])
+def test_backward_kernel_matches_plain(cuda, cap):
+    _check_backward(cuda, *random_slab(cap, seed=1), cap)
+
+
+@pytest.mark.parametrize("geom", [False, True])
+@pytest.mark.parametrize("cap", [32, 256, 1024, 2048])
+def test_forward_kernel_adversarial(cuda, cap, geom):
+    _check_forward(cuda, *adversarial_slab(cap, seed=cap), cap, geom)
+
+
+@pytest.mark.parametrize("cap", [32, 256, 1024, 2048])
+def test_backward_kernel_adversarial(cuda, cap):
+    _check_backward(cuda, *adversarial_slab(cap, seed=cap + 1), cap)
+
+
+@pytest.mark.parametrize("cap", [256, 2048])
+def test_kernels_on_a_fully_culled_slab(cuda, cap):
+    """Every entry culled: T = 1 and empty channels forward, zero gradients
+    backward, exactly."""
+    entries, counts, intr, tx = culled_slab(cap)
+    for geom in (False, True):
+        out = _check_forward(cuda, entries, counts, intr, tx, cap, geom)
+        assert torch.equal(out[-1], torch.ones_like(out[-1]))
+        assert all(float(x.abs().max()) == 0.0 for x in out[:-1])
+    assert float(_check_backward(cuda, entries, counts, intr, tx, cap).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("cap", [256, 2048])
+def test_kernels_equal_their_build_without_the_cull(cuda, cap, wide):
+    """A culled pair adds exactly nothing: on the adversarial slabs, the wide
+    ones included, the forward (both variants) and the backward give the
+    bits of the kernels built without the row cull."""
+    from eggfusion_tpu_torch.ops import cuda_build
+
+    entries, counts, intr, tx = adversarial_slab(cap, seed=cap, wide=wide)
+    entries, counts, intr = entries.to(cuda), counts.to(cuda), intr.to(cuda)
+    fwd_lib = cuda_build.load("composite_fwd", cuda_build.NO_CULL)
+    for geom in (False, True):
+        culled = rt.composite_fwd(entries, counts, intr, tx, cap, geom=geom)
+        whole = rt._launch_fwd(fwd_lib, entries, counts, intr, tx, cap, geom)
+        assert all(torch.equal(a, b) for a, b in zip(culled, whole))
+    outs = rt.composite_fwd(entries, counts, intr, tx, cap)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    ins = [entries, counts, intr] + [torch.randn(o.shape, generator=g, device=cuda) for o in outs] + [outs[4]]
+    assert torch.equal(rt.composite_bwd(*ins, tx, cap),
+                       rt._launch_bwd(cuda_build.load("composite_bwd", cuda_build.NO_CULL), *ins, tx, cap))
+
+
+def test_kernels_on_an_unaligned_slab(cuda):
+    """A slab whose rows are 4-byte but not 16-byte aligned takes the
+    kernels' 4-byte copies and gives the same bits as an aligned one."""
+    entries, counts, intr, tx = random_slab(256, seed=4)
+    flat = torch.empty(entries.numel() + 1, device=cuda)
+    shifted = flat[1:].view(entries.shape)
+    shifted.copy_(entries)
+    assert shifted.data_ptr() % 16 == 4
+    ins = [counts.to(cuda), intr.to(cuda)]
+    aligned = rt.composite_fwd(entries.to(cuda), *ins, tx, 256)
+    for a, b in zip(aligned, rt.composite_fwd(shifted, *ins, tx, 256)):
+        assert torch.equal(a, b)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    cots = [torch.randn(o.shape, generator=g, device=cuda) for o in aligned]
+    assert torch.equal(rt.composite_bwd(entries.to(cuda), *ins, *cots, aligned[4], tx, 256),
+                       rt.composite_bwd(shifted, *ins, *cots, aligned[4], tx, 256))
 
 
 def test_wrapper_rejects_bad_inputs(cuda):
-    entries, counts, intr, tx = _slab(256)
+    entries, counts, intr, tx = random_slab(256)
     with pytest.raises(ValueError):
         rt.composite_fwd(entries.to(cuda), counts.to(cuda).long(), intr.to(cuda), tx, 256)
     with pytest.raises(ValueError):
