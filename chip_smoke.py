@@ -24,13 +24,32 @@ Run from the root of a checkout. Phases, each printing one JSON line:
   3. main   — `eggfusion_tpu_torch.main.run` on 48 frames of the synthetic
               sequence at 1280x704 in the slice configuration
               (`eggfusion_tpu_torch.config.slice_config`: `bench.py`'s
-              workload, 8 + 40 frames), with the launch counts
-              zeroed just before and read just after; fails unless the
-              forward and backward kernels ran, ATE < 1 cm and the map is
-              non-empty;
+              workload, 8 + 40 frames, tracking recovery on) with
+              `final_global_opt` on; the launch counts are zeroed just
+              before the frame loop and read and zeroed again after it,
+              after `finish()` and after the evaluations (`run`'s
+              `on_stage`); fails unless the forward and backward kernels
+              ran in the loop, ATE < 1 cm and the map is non-empty;
+     finish — the same run's `finish()` and evaluations: keyframes,
+              global-opt steps, seconds, launches of each, the PLY's bytes
+              and surfels, whether `checkpoint.npz` loads back bit for bit,
+              keyframe PSNR / SSIM / depth-L1, the held-out views, recon F1
+              and accuracy at 2 cm; fails unless both compositors ran in
+              `finish()`, the checkpoint round-trips and the evaluations
+              keep the bounds `tests/test_system_e2e.py` holds the JAX
+              system to;
   4. burst  — the same with `Mapping.opt_schedule: burst` for 7 frames, so
               frame 6 is an optimization frame; fails unless the
-              geometry-only kernel ran.
+              geometry-only kernel ran;
+  5. recovery — 20 frames with `texture_detail` 0.25, frames 6-8 corrupted
+              (no depth, flat color) as in `tests/test_recovery.py`, through
+              `EGGFusion.reconstruct`; fails unless recovery fired, its
+              re-anchor launched the forward kernel and the ATE over the
+              good frames is < 3 cm;
+  6. resume — a new `EGGFusion` resumes from the main phase's checkpoint and
+              reconstructs frames 48-51; fails unless the frame clock and
+              the active surfels equal the saved ones at load and the ATE
+              over all 52 frames is < 1 cm.
 Then the kernels line, the card's `nvidia-smi` name and power limit, and
 the last line {"ok": true, "device": {...}}. Any failure exits non-zero
 before the last line. Needs no network; JAX is not imported.
@@ -44,6 +63,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
@@ -372,28 +393,37 @@ def check_adversarial(torch) -> dict:
     return out
 
 
-def drive(cfglib, torch, n_frames: int, burst: bool) -> dict:
+def drive(cfglib, torch, n_frames: int, burst: bool, final_global_opt: bool = False):
     """Phases 3 and 4: the main path through `main.run`, with the launch
-    counts zeroed just before and read just after."""
+    counts zeroed just before the frame loop and read (then zeroed) after
+    the loop, after `finish()` and after the evaluations. Returns the
+    phase's record, the launches of each stage and the system."""
     from eggfusion_tpu_torch.main import run
     from eggfusion_tpu_torch.ops import raster_tile as rt
 
     name = "burst" if burst else "main"
-    cfg = cfglib.slice_config(n_frames, os.path.join(OUT_DIR, name), burst=burst)
+    cfg = cfglib.slice_config(n_frames, os.path.join(OUT_DIR, name), burst=burst,
+                              final_global_opt=final_global_opt)
+    stages = {}
+
+    def on_stage(stage, ef):
+        stages[stage] = dict(rt.LAUNCHES)
+        rt.reset_launch_counts()
+
     rt.reset_launch_counts()
-    ef = run(cfg)  # the default device: CUDA
-    torch.cuda.synchronize()
-    launches = dict(rt.LAUNCHES)
-    ate = ef.evaluate_trajectory()
+    ef = run(cfg, on_stage=on_stage)  # the default device: CUDA
+    launches = stages["loop"]
+    ate = ef.evaluate_trajectory(plot=False)
     n_active = int(ef.mapper.surfels.num_active())
-    track = [m["track_ms"] for m in ef.metrics]
-    total = [m["track_ms"] + m["map_ms"] + m["post_ms"] for m in ef.metrics]
+    frames = [m for m in ef.metrics if m["frame"] >= 0]
+    track = [m["track_ms"] for m in frames]
+    total = [m["track_ms"] + m["map_ms"] + m["post_ms"] for m in frames]
     out = {"phase": name, "frames": n_frames, "wall_s": ef.run_wall_s, "fps": n_frames / ef.run_wall_s,
            "fps_after_frame0": (n_frames - 1) / max(ef.run_wall_s - ef.run_frame0_s, 1e-9),
            "frame_ms": [round(t, 3) for t in total], "track_ms": [round(t, 3) for t in track],
-           "ate_cm": ate, "active_surfels": n_active, "opt_steps": ef.mapper.opt_steps_total,
-           "launches": launches, "model_cap_switches": ef.mapper.cap_switches,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "ate_cm": ate, "active_surfels": n_active, "opt_steps": frames[-1]["opt_steps"],
+           "launches": launches, "recoveries": len(ef.metrics) - len(frames),
+           "model_cap_switches": ef.mapper.cap_switches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(out)
     mm = ef.model_map
     if not all(torch.isfinite(mm[k]).all() for k in ("rendered_color", "rendered_depth")):
@@ -405,6 +435,155 @@ def drive(cfglib, torch, n_frames: int, burst: bool) -> dict:
     for k in ("composite_fwd", "composite_bwd") + (("composite_geom",) if burst else ()):
         if launches[k] <= 0:
             fail(f"{name}: kernel {k} was never launched on this path")
+    return out, stages, ef
+
+
+def same_map_bits(a, b) -> bool:
+    """Every field of two surfel maps holds the same bits."""
+    from eggfusion_tpu_torch.core.surfels import FIELDS
+
+    return all(getattr(a, f).cpu().numpy().tobytes() == getattr(b, f).cpu().numpy().tobytes() for f in FIELDS)
+
+
+def check_finish(torch, ef, stages: dict, loop_steps: int) -> dict:
+    """Phase 3b: what the main run's `finish()` and evaluations did."""
+    from eggfusion_tpu_torch.io import checkpoint as ckpt
+    from eggfusion_tpu_torch.io import ply as plyio
+
+    ply = os.path.join(ef.save_dir, "final_surfels.ply")
+    s, extra = ckpt.load_checkpoint(os.path.join(ef.save_dir, "checkpoint.npz"), ef.device)
+    round_trip = (same_map_bits(s, ef.mapper.surfels) and int(extra["time"]) == ef.mapper.time
+                  and np.array_equal(extra["traj_est"], ef._traj_np("est")))
+    with open(os.path.join(ef.save_dir, "render_metrics.json")) as f:
+        render = json.load(f)
+    recon = ef.evaluate_recon(thresh=0.02)
+    held = render["held_out"]
+    kf = render["mean"]
+    out = {"phase": "finish", "keyframes": ef.mapper.keyframe_manager.ids(),
+           "global_opt_steps": ef.mapper.opt_steps_total - loop_steps,
+           "finish_s": ef.run_finish_s, "eval_s": ef.run_eval_s,
+           "launches_finish": stages["finish"], "launches_eval": stages["eval"],
+           "ply_bytes": os.path.getsize(ply), "ply_surfels": len(plyio.load_ply(ply)["xyz"]),
+           "active_surfels": int(ef.mapper.surfels.num_active()), "checkpoint_bit_exact": round_trip,
+           "psnr": kf["psnr"], "ssim": kf["ssim"], "ms_ssim": kf["ms_ssim"], "depth_l1": kf["depth_l1"],
+           "heldout_frames": [r["frame"] for r in held.get("per_frame", [])],
+           "heldout_psnr": held.get("mean", {}).get("psnr"), "heldout_depth_l1": held.get("mean", {}).get("depth_l1"),
+           "recon_f1_2cm": recon.get("recon_f1"), "recon_acc_mean_2cm": recon.get("recon_acc_mean")}
+    emit(out)
+    for k in ("composite_fwd", "composite_bwd"):
+        if stages["finish"][k] <= 0:
+            fail(f"finish: kernel {k} was never launched by finish()")
+    if not round_trip:
+        fail("finish: checkpoint.npz does not load back bit for bit")
+    if out["ply_surfels"] != out["active_surfels"]:
+        fail(f"finish: the PLY holds {out['ply_surfels']} surfels, the map {out['active_surfels']}")
+    if not (kf["psnr"] > 12.0 and kf["depth_l1"] < 0.15):
+        fail(f"finish: keyframe render metrics {kf}")
+    if not (held and held["mean"]["psnr"] > 10.0 and held["mean"]["depth_l1"] < 0.2):
+        fail(f"finish: held-out render metrics {held}")
+    if not (recon.get("recon_f1", 0.0) > 0.7 and recon["recon_acc_mean"] < 0.05):
+        fail(f"finish: recon metrics at 2 cm {recon}")
+    return out
+
+
+def check_recovery(cfglib, torch, n_frames: int = 20, bad=range(6, 9)) -> dict:
+    """Phase 5: tracking loss on corrupted frames and the recovery, through
+    `EGGFusion.reconstruct`; the re-anchor's launches are counted around
+    `_recover_tracking`."""
+    from eggfusion_tpu_torch.core.frame import Frame
+    from eggfusion_tpu_torch.data.datasets import load_dataset
+    from eggfusion_tpu_torch.main import build_frame
+    from eggfusion_tpu_torch.ops import raster_tile as rt
+    from eggfusion_tpu_torch.system import EGGFusion
+    from eggfusion_tpu_torch.utils import eval as evalu
+
+    cfg = cfglib.merge(cfglib.slice_config(n_frames, os.path.join(OUT_DIR, "recovery")),
+                       {"Dataset": {"texture_detail": 0.25}})
+    ef = EGGFusion(cfg)
+    dev = ef.device
+    ds = load_dataset(cfg, dev)
+    recoveries = []
+    plain_recover = ef._recover_tracking
+
+    def counted_recover(frame=None):
+        torch.cuda.synchronize()
+        before, t0 = dict(rt.LAUNCHES), time.perf_counter()
+        ok = plain_recover(frame)
+        torch.cuda.synchronize()
+        recoveries.append({"frame": frame.uid, "ms": (time.perf_counter() - t0) * 1e3,
+                           "fwd_launches": rt.LAUNCHES["composite_fwd"] - before["composite_fwd"],
+                           **{k: v for k, v in ef.metrics[-1].items() if k != "frame"}})
+        return ok
+
+    ef._recover_tracking = counted_recover
+    H, W = ds.intrinsics.height, ds.intrinsics.width
+    rt.reset_launch_counts()
+    t0 = time.perf_counter()
+    for fid in range(n_frames):
+        if fid in bad:
+            frame = Frame(uid=fid, ts=ds.ts[fid], color_u8=torch.full((H, W, 3), 0.5, device=dev),
+                          depth_raw=torch.zeros((H, W, 1), device=dev), mask=torch.ones((H, W, 1), device=dev),
+                          gt_pose_w2c=ds.poses[fid], intr=ds.intrinsics, depth_scale=1.0, device=dev,
+                          nlevel=ef.nlevel, prefiltered=True, filter_depth=True, bilateral=ds.bilateral_mode)
+        else:
+            frame = build_frame(ds, fid, False, dev, nlevel=ef.nlevel)
+        ef.reconstruct(frame)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(rt.LAUNCHES)
+    good = [i for i in range(n_frames) if i not in bad]
+    ref, est = ef._traj_np("ref"), ef._traj_np("est")
+    ate = evalu.ate_rmse(ref[good][:, :3, 3], est[good][:, :3, 3])
+    frames = {m["frame"]: m for m in ef.metrics if m["frame"] >= 0}
+    for r in recoveries:
+        r["frame_ms"] = frames[r["frame"]]["track_ms"] + frames[r["frame"]]["map_ms"] + frames[r["frame"]]["post_ms"]
+    out = {"phase": "recovery", "frames": n_frames, "corrupted": list(bad), "wall_s": wall,
+           "recoveries": recoveries, "ate_good_cm": ate, "ate_all_cm": evalu.ate_rmse(ref[:, :3, 3], est[:, :3, 3]),
+           "launches": launches, "active_surfels": int(ef.mapper.surfels.num_active())}
+    emit(out)
+    if not recoveries:
+        fail("recovery: tracking recovery never fired")
+    if not all(r["fwd_launches"] > 0 for r in recoveries):
+        fail(f"recovery: a re-anchor did not launch the forward kernel: {recoveries}")
+    if not ate < 3.0:
+        fail(f"recovery: ATE over the good frames {ate} cm >= 3 cm")
+    return out
+
+
+def check_resume(cfglib, torch, ckpt_path: str, saved, n_more: int = 4) -> dict:
+    """Phase 6: a new system resumes the main phase's checkpoint and
+    reconstructs `n_more` frames of the same sequence."""
+    from eggfusion_tpu_torch.data.datasets import load_dataset
+    from eggfusion_tpu_torch.main import build_frame
+    from eggfusion_tpu_torch.ops import raster_tile as rt
+    from eggfusion_tpu_torch.system import EGGFusion
+    from eggfusion_tpu_torch.utils import eval as evalu
+
+    time0, active0 = saved
+    n = time0 + n_more
+    cfg = cfglib.merge(cfglib.slice_config(n, os.path.join(OUT_DIR, "resume")), {"Dataset": {"lazy_device": True}})
+    rt.reset_launch_counts()
+    ef = EGGFusion(cfg)
+    t0 = time.perf_counter()
+    ef.resume(ckpt_path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    at_load = {"time": ef.mapper.time, "active_surfels": int(ef.mapper.surfels.num_active()),
+               "launches": dict(rt.LAUNCHES)}
+    ds = load_dataset(cfg, ef.device)
+    for fid in range(ef.mapper.time, n):
+        ef.reconstruct(build_frame(ds, fid, False, ef.device, nlevel=ef.nlevel))
+    torch.cuda.synchronize()
+    ref, est = ef._traj_np("ref"), ef._traj_np("est")
+    ate = evalu.ate_rmse(ref[:, :3, 3], est[:, :3, 3])
+    out = {"phase": "resume", "saved": {"time": time0, "active_surfels": active0}, "at_load": at_load,
+           "load_s": load_s, "frames": len(est), "ate_cm": ate, "launches": dict(rt.LAUNCHES),
+           "active_surfels": int(ef.mapper.surfels.num_active())}
+    emit(out)
+    if (at_load["time"], at_load["active_surfels"]) != (time0, active0):
+        fail(f"resume: loaded {at_load}, saved time {time0} and {active0} active surfels")
+    if len(est) != n or not ate < 1.0:
+        fail(f"resume: ATE {ate} cm over {len(est)} frames")
     return out
 
 
@@ -438,8 +617,16 @@ def main() -> None:
 
     checks = check_kernels(cfglib, torch)
     adversarial = check_adversarial(torch)
-    main_run = drive(cfglib, torch, n_frames=48, burst=False)
-    burst_run = drive(cfglib, torch, n_frames=7, burst=True)
+    main_run, main_stages, ef = drive(cfglib, torch, n_frames=48, burst=False, final_global_opt=True)
+    finish = check_finish(torch, ef, main_stages, main_run["opt_steps"])
+    saved = (ef.mapper.time, int(ef.mapper.surfels.num_active()))
+    ckpt_path = os.path.join(ef.save_dir, "checkpoint.npz")
+    del ef
+    burst_run, burst_stages, _ = drive(cfglib, torch, n_frames=7, burst=True)
+    recovery = check_recovery(cfglib, torch)
+    resume = check_resume(cfglib, torch, ckpt_path, saved)
+    by_path = {"main": main_stages["loop"], "finish": main_stages["finish"], "eval": main_stages["eval"],
+               "burst": burst_stages["loop"], "recovery": recovery["launches"], "resume": resume["launches"]}
 
     src = "eggfusion_tpu_torch/csrc/"
     rows = [
@@ -454,12 +641,14 @@ def main() -> None:
                         "launches": path["launches"][name], "max_abs_err": c["max_abs_err"],
                         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                         "bound_by": c["bound_by"], "library_ms": None, "stream_ms": c["stream_ms"],
-                        "bound_ms_visited": c["bound_ms_visited"]})
+                        "bound_ms_visited": c["bound_ms_visited"],
+                        "launches_by_path": {p: v[name] for p, v in by_path.items()}})
         if "ms_by_shape" in c:
             kernels[-1]["ms_by_shape"] = c["ms_by_shape"]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"gpu": gpu, "checks": checks, "adversarial": adversarial, "main": main_run,
-                   "burst": burst_run, "kernels": kernels},
+                   "finish": finish, "burst": burst_run, "recovery": recovery, "resume": resume,
+                   "kernels": kernels},
                   f, indent=1)
     emit({"kernels": kernels})
     print(gpu, flush=True)

@@ -226,11 +226,13 @@ def default_config(**overrides) -> Config:
     return cfg
 
 
-def slice_config(n_frames: int, save_dir: str, burst: bool = False) -> Config:
+def slice_config(n_frames: int, save_dir: str, burst: bool = False,
+                 final_global_opt: bool = False) -> Config:
     """`bench.py`'s 1280x704 synthetic workload with a fixed 262144-slot map
-    (`capacity_bucketing` off), tracking recovery off (`recover_after: 0`)
-    and every frame unique (no `unique_frames` cycling); `burst` switches
-    to `Mapping.opt_schedule: burst`."""
+    (`capacity_bucketing` off) and every frame unique (no `unique_frames`
+    cycling); `burst` switches to `Mapping.opt_schedule: burst`,
+    `final_global_opt` turns on `finish()`'s global keyframe optimization
+    (off in `bench.py`)."""
     w, h = 1280, 704
     mapping = {"local_map_iter": 3, "opt_step_scale": 0.5}
     if burst:
@@ -242,7 +244,7 @@ def slice_config(n_frames: int, save_dir: str, burst: bool = False) -> Config:
         Viewer={"max_surfels_num": 262144},
         Surfel={"max_sh_degree": 0, "active_sh_degree": 0},
         Mapping=mapping,
-        Tracking={"pyramid_iters": [3, 3, 2], "solver_stride_fine": 4, "recover_after": 0},
-        System={"save_dir": save_dir, "final_global_opt": False, "bilateral_mode": "separable",
+        Tracking={"pyramid_iters": [3, 3, 2], "solver_stride_fine": 4},
+        System={"save_dir": save_dir, "final_global_opt": final_global_opt, "bilateral_mode": "separable",
                 "capacity_bucketing": False},
     )

@@ -2,14 +2,16 @@
 sliding-window map optimization (port of `eggfusion_tpu/core/mapper.py`,
 in part).
 
-Ported: `MapperConfig`, Adam and the losses, `KeyFrame` /
-`KeyFrameManager`, and in `Mapping` the per-frame `map_update`, `opt_step`,
-spawn sampling, the binning cache, `mapping`, the adaptive model cap, map
-maintenance (prune + compact), the amortized and burst optimization
-schedules. Not ported (the constructor raises where a config asks for
-them): the capacity ladder and its background precompiles (the map here is
-always `Viewer.max_surfels_num` slots), `settled_skip`, `model_view_down`
-> 1, the multi-device window step, and `keyframe_optimization`.
+Ported: `MapperConfig`, Adam and the losses, `KeyFrame` (device or host
+storage) / `KeyFrameManager`, the keyframe-map NaN check, and in `Mapping`
+the per-frame `map_update`, `opt_step`, spawn sampling, the binning cache,
+`mapping`, the adaptive model cap, map maintenance (prune + compact), the
+amortized and burst optimization schedules, the global keyframe
+optimization of `finish` and the full model render of the evaluations. Not
+ported (the constructor raises where a config asks for them): the capacity
+ladder and its background precompiles (the map here is always
+`Viewer.max_surfels_num` slots), `settled_skip`, `model_view_down` > 1 and
+the multi-device window step.
 
 Device scalars the host needs (fusion stats, losses, pose deltas, map
 counts) are copied asynchronously and read `count_lag` frames later, as in
@@ -35,6 +37,7 @@ class MapperConfig(NamedTuple):
 
     local_map_iter: int = 3
     local_map_iter_init: int = 20
+    final_global_opt_iter: int = 60
     add_opacity_thres: float = 0.8
     add_depth_thres: float = 0.05
     sample_ratio: float = 0.025
@@ -134,6 +137,19 @@ def compute_loss(render_out: dict, kf: dict, s: sf.SurfelMap, geo_snapshot: dict
     return compute_image_loss(render_out, kf, mcfg, pix_mask) + compute_reg_loss(s, geo_snapshot, mcfg)
 
 
+def _finite_fractions(kfm: dict) -> dict:
+    """The share of finite values of each keyframe map (device scalars)."""
+    return {k: torch.mean(torch.isfinite(v.to(torch.float32)).to(torch.float32)) for k, v in kfm.items()}
+
+
+def _check_nan_maps(kfm: dict, uid) -> None:
+    """Raise on a keyframe map holding a NaN or an infinity (one host read
+    per map: `System.check_nan` is a debug mode)."""
+    for k, frac in _finite_fractions(kfm).items():
+        if float(frac) < 1.0:
+            raise FloatingPointError(f"non-finite values in keyframe uid={uid} map '{k}'")
+
+
 def _geo_snapshot(s: sf.SurfelMap) -> dict:
     """Round-start geometry for the drift regularizer (fresh tensors: the
     optimizer updates the map in place)."""
@@ -177,22 +193,32 @@ class RandomSource:
 
 
 class KeyFrame:
-    """Snapshot of a frame and its maps (device-resident)."""
+    """Snapshot of a frame and its maps. `storage` "device" keeps the maps
+    on the frame's device; "host" (`System.keyframe_storage: host`, for long
+    sequences) keeps numpy copies that `device_maps()` uploads on demand."""
 
-    def __init__(self, frame, frame_map: dict, time: int, fid: int):
+    def __init__(self, frame, frame_map: dict, time: int, fid: int, storage: str = "device"):
         self.fid = fid
         self.time = time
         self.uid = frame.uid
         self.w2c = frame.w2c_matrix()
         self.intr = frame.intr
         self.width, self.height = frame.width, frame.height
-        self.maps = {
+        maps = {
             "color": frame_map["color_map"],
             "depth": frame_map["depth_map"],
             "normal": frame_map["normal_map_c"],
             "rgb_mask": frame_map["rgb_mask"],
             "geo_mask": frame_map["geo_mask"],
         }
+        self.storage = storage
+        self.device = frame.intr.device
+        self.maps = {k: v.cpu().numpy() for k, v in maps.items()} if storage == "host" else maps
+
+    def device_maps(self) -> dict:
+        if self.storage == "host":
+            return {k: torch.as_tensor(v, device=self.device) for k, v in self.maps.items()}
+        return self.maps
 
 
 class KeyFrameManager:
@@ -207,6 +233,7 @@ class KeyFrameManager:
         self.check_t = float(cfg.Tracking.check_keyframe_t)
         self.window_size = int(cfg.Tracking.sliding_window_size)
         self.sliding_window: deque = deque(maxlen=self.window_size)
+        self.storage = str(cfg.System.get("keyframe_storage", "device"))
         self.check_lag = max(1, int(cfg.Tracking.get("keyframe_check_lag", 2)))
         self._kf_gen = 0
         self._pending_mag: deque = deque(maxlen=16)  # (time, gen, HostReadback)
@@ -224,7 +251,7 @@ class KeyFrameManager:
         self._pending_mag.clear()
 
     def check_keyframe(self, frame, frame_map, time: int) -> bool:
-        kf = KeyFrame(frame, frame_map, time, len(self.keyframes))
+        kf = KeyFrame(frame, frame_map, time, len(self.keyframes), self.storage)
         if time == 0 or not self.keyframes:
             self._accept(kf)
             return True
@@ -262,6 +289,7 @@ class Mapping:
         self.mcfg = MapperConfig(
             local_map_iter=int(m.local_map_iter),
             local_map_iter_init=int(m.local_map_iter_init),
+            final_global_opt_iter=int(m.final_global_opt_iter),
             add_opacity_thres=float(m.add_opacity_thres),
             add_depth_thres=float(m.add_depth_thres),
             sample_ratio=float(m.sample_ratio),
@@ -305,6 +333,14 @@ class Mapping:
             "opacity": float(m.opacity_lr),
             "scaling": float(m.scaling_lr),
             "rotation": float(m.rotation_lr),
+        }
+        self.global_lrs = {
+            "xyz": float(m.final_position_lr),
+            "features_dc": float(m.final_feature_lr),
+            "features_rest": float(m.final_feature_lr) / 20.0,
+            "opacity": float(m.final_opacity_lr),
+            "scaling": float(m.final_scaling_lr),
+            "rotation": float(m.final_rotation_lr),
         }
         self.renderer = renderer
         self.keyframe_manager = KeyFrameManager(cfg)
@@ -462,6 +498,13 @@ class Mapping:
         self._host_step += 1
         return s, moments, step + 1, loss.detach()
 
+    def render_model(self, s: sf.SurfelMap, w2c, intr, width: int, height: int) -> dict:
+        """A full forward render of the map (no gradient) at the renderer's
+        `raster_cap`: the re-anchor of recovery and resume, and the
+        evaluations."""
+        with torch.no_grad():
+            return self.renderer.render_at(sf.render_params(s), w2c, intr, width, height, need_grad=False)
+
     def bin_cache(self, s: sf.SurfelMap, w2c, intr, width: int, height: int):
         """Tile binning of the map from a keyframe, at the optimization cap."""
         with torch.no_grad():
@@ -556,6 +599,16 @@ class Mapping:
         self._maint_pending = None
         self._maintain_decide(int(cnt.numpy()), int(act.numpy()))
 
+    def forget_pending(self) -> None:
+        """Drop every lagged readback and every cache that refers to the
+        slots of the current map: the map was just replaced (resume,
+        reload)."""
+        self._stats_pending.clear()
+        self._loss_pending.clear()
+        self._maint_pending = None
+        self._opt_cache_map = {}
+        self._opt_moments = None
+
     def _maintain_decide(self, count: int, n_active: int) -> None:
         if count - n_active > self.mcfg.compact_frag * self.surfels.capacity:
             with torch.no_grad():
@@ -593,9 +646,12 @@ class Mapping:
         if cache is None:
             cache = self.bin_cache(self.surfels, kf.w2c, kf.intr, kf.width, kf.height)
             self._opt_cache_map[kf.uid] = cache
+        kfm = kf.device_maps()
+        if self.debug_nan:
+            _check_nan_maps(kfm, kf.uid)
         for _ in range(n):
             self.surfels, self._opt_moments, self._opt_stepno, loss = self.opt_step(
-                self.surfels, self._opt_moments, self._opt_stepno, kf.maps, kf.w2c, kf.intr,
+                self.surfels, self._opt_moments, self._opt_stepno, kfm, kf.w2c, kf.intr,
                 self._opt_geo, self.sw_lrs, kf.width, kf.height, cache)
             if self.debug_nan and not np.isfinite(float(loss)):
                 raise FloatingPointError(f"NaN/Inf map-optimization loss at keyframe uid={kf.uid}")
@@ -617,10 +673,13 @@ class Mapping:
         self._host_step = 0
         loss = torch.full((), float("nan"), device=self.device)
         for kf, n in runs:
+            kfm = kf.device_maps()
+            if self.debug_nan:
+                _check_nan_maps(kfm, kf.uid)
             cache = self.bin_cache(self.surfels, kf.w2c, kf.intr, kf.width, kf.height) if n > 1 else None
             for _ in range(n):
                 self.surfels, moments, step, loss = self.opt_step(
-                    self.surfels, moments, step, kf.maps, kf.w2c, kf.intr, geo_snapshot, lrs,
+                    self.surfels, moments, step, kfm, kf.w2c, kf.intr, geo_snapshot, lrs,
                     kf.width, kf.height, cache)
                 self.opt_steps_total += 1
                 if self.debug_nan and not np.isfinite(float(loss)):
@@ -635,3 +694,28 @@ class Mapping:
             return float("nan")
         per_kf = self.mcfg.local_map_iter if self.time > 0 else self.mcfg.local_map_iter_init
         return self._optimize([(kf, per_kf) for kf in window], self.sw_lrs)
+
+    def keyframe_optimization(self, keyframe_num: int = -1):
+        """The global keyframe optimization of `finish`:
+        `final_global_opt_iter` Adam steps per keyframe at the final learning
+        rates, in runs of min(4, steps) on keyframes drawn uniformly, in
+        `ids()` order, by `np.random.default_rng(self.time)` (the JAX
+        schedule, draw for draw). Returns the last loss (device scalar)."""
+        ids = self.keyframe_manager.ids()
+        if not ids:
+            return float("nan")
+        if keyframe_num == -1:
+            keyframe_num = len(ids)
+        keyframe_num = min(keyframe_num, len(ids))
+        kfs = [self.keyframe_manager.keyframes[i] for i in ids[:keyframe_num]]
+        iters = self.mcfg.final_global_opt_iter * keyframe_num
+        rng = np.random.default_rng(self.time)
+        run_len = min(4, iters)
+        runs = [(kfs[rng.integers(len(kfs))], run_len) for _ in range(iters // run_len)]
+        return self._optimize(runs, self.global_lrs)
+
+    def get_render_output(self, frame) -> dict:
+        """The model rendered at a frame's estimated pose, channel-last."""
+        out = self.render_model(self.surfels, frame.w2c_matrix(), frame.intr, frame.width, frame.height)
+        return {"render_color": out["color"], "render_depth": out["depth"],
+                "render_normal": out["normal"], "render_opacity": out["opacity"]}

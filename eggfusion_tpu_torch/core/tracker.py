@@ -134,12 +134,17 @@ class Tracker:
         self.readback_lag = max(1, int(t.get("readback_lag", 3)))
         self._conv_pending: deque = deque()  # (HostReadback of converged, pose)
         self.last_good_w2c = None
+        self.seed_override = None  # one-shot delta seed (the recovery rotation sweep)
         self.initialized = False
         self._prev_w2c = None
         self._prev_prev_w2c = None
 
     def _seed_delta(self):
-        """Initial delta: identity mid-failure-streak, else constant velocity."""
+        """Initial delta: a pending one-shot override first, then identity
+        mid-failure-streak, else constant velocity."""
+        if self.seed_override is not None:
+            seed, self.seed_override = self.seed_override, None
+            return seed.to(torch.float32)
         eye = torch.eye(4, dtype=torch.float32, device=self.device)
         if self._fail_streak > 0:
             return eye
@@ -162,6 +167,13 @@ class Tracker:
     def needs_recovery(self) -> bool:
         self._update_fail_streak()
         return self.recover_after > 0 and self._fail_streak >= self.recover_after
+
+    def reset_motion(self) -> None:
+        """Clear the constant-velocity state and the failure streak (after a
+        recovery re-anchor the previous velocity is meaningless)."""
+        self._prev_prev_w2c = None
+        self._fail_streak = 0
+        self._conv_pending.clear()
 
     def tracking(self, frame, model_map) -> None:
         if self.only_mapping or not self.initialized:

@@ -1,11 +1,13 @@
 """CLI driver (port of `eggfusion_tpu/main.py`).
 
-Usage (on a CUDA GPU):
+Usage (on a CUDA GPU; `--device cpu` runs on the CPU):
     python -m eggfusion_tpu_torch.main --synthetic --frames 30 --verbose
+    python -m eggfusion_tpu_torch.main --config my_run.yaml
+    python -m eggfusion_tpu_torch.main --synthetic --resume results/synthetic_run_torch/checkpoint.npz
 
-`run` stops after the frame loop and the trajectory evaluation; the JAX
-driver's `finish()` (global optimization, PLY and checkpoint export) and
-render/recon evaluations are not ported.
+A run reconstructs the sequence, then calls `finish()` (the global keyframe
+optimization, `final_surfels.ply`, `checkpoint.npz`) and each evaluation its
+config enables (trajectory, render, reconstruction).
 """
 from __future__ import annotations
 
@@ -30,22 +32,34 @@ def build_frame(dataset, fid: int, preload: bool, device, nlevel: int = 3):
                  prefiltered=device_feed, filter_depth=device_feed, bilateral=bilateral)
 
 
-def run(cfg, max_frames: int | None = None, verbose: bool = False, device=None,
-        random_source=None):
-    """Reconstruct the configured sequence; returns the `EGGFusion`."""
+def run(cfg, max_frames: int | None = None, verbose: bool = False, resume: str | None = None,
+        device=None, random_source=None, on_stage=None):
+    """Reconstruct the configured sequence (from the checkpoint `resume`,
+    if given), then `finish()` and the enabled evaluations; returns the
+    `EGGFusion`. Seconds on the system: `run_wall_s` for the frame loop,
+    `run_frame0_s` for its first frame, `run_finish_s` and `run_eval_s`.
+    `on_stage(name, ef)`, if given, is called after the frame loop ("loop"),
+    `finish()` ("finish") and the evaluations ("eval"), each after the
+    device has drained."""
     from eggfusion_tpu_torch.data.datasets import load_dataset
     from eggfusion_tpu_torch.system import EGGFusion
 
     ef = EGGFusion(cfg, device=device, random_source=random_source)
     dataset = load_dataset(cfg, ef.device)
+    start = 0
+    if resume:
+        ef.resume(resume)
+        start = ef.mapper.time
     n = len(dataset) if max_frames is None else min(len(dataset), max_frames)
-    preload = bool(cfg.Dataset.get("preload", True))
+    # the buffered reader starts at frame 0; a resumed run indexes directly
+    preload = bool(cfg.Dataset.get("preload", True)) and start == 0
     sync = torch.cuda.synchronize if ef.device.type == "cuda" else (lambda: None)
+    stage = on_stage or (lambda name, ef: None)
     t_start = time.perf_counter()
-    for fid in range(n):
+    for fid in range(start, n):
         frame = build_frame(dataset, fid, preload, ef.device, nlevel=ef.nlevel)
         ef.reconstruct(frame)
-        if fid == 0:  # frame 0 carries the init burst: timed apart
+        if fid == start:  # frame 0 carries the init burst: timed apart
             sync()
             ef.run_frame0_s = time.perf_counter() - t_start
         if verbose or fid % 25 == 0:
@@ -53,30 +67,51 @@ def run(cfg, max_frames: int | None = None, verbose: bool = False, device=None,
             print(f"frame {fid}/{n}  track {m['track_ms']:.1f}ms  map {m['map_ms']:.1f}ms  "
                   f"post {m['post_ms']:.1f}ms  surfels {int(m['surfels'])}")
     sync()
-    wall = time.perf_counter() - t_start
-    ef.run_wall_s = wall
-    print(f"Processed {n} frames in {wall:.2f}s ({n / max(wall, 1e-9):.2f} FPS)")
-    if cfg.System.get("eval_tracking", True):
+    ef.run_wall_s = time.perf_counter() - t_start
+    done = n - start
+    print(f"Processed {done} frames in {ef.run_wall_s:.2f}s ({done / max(ef.run_wall_s, 1e-9):.2f} FPS)")
+    stage("loop", ef)
+
+    t0 = time.perf_counter()
+    ef.finish()
+    sync()
+    ef.run_finish_s = time.perf_counter() - t0
+    stage("finish", ef)
+
+    t0 = time.perf_counter()
+    s = cfg.System
+    if s.get("eval_tracking", True):
         ef.evaluate_trajectory()
+    if s.get("eval_render", False):
+        ef.evaluate_render()
+    if s.get("eval_recon", False):
+        ef.evaluate_recon()
+    sync()
+    ef.run_eval_s = time.perf_counter() - t0
+    stage("eval", ef)
     return ef
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="EggFusion RGB-D dense SLAM (PyTorch / CUDA)")
+    parser.add_argument("--config", type=str, default=None, help="scene yaml (synthetic datasets only)")
     parser.add_argument("--synthetic", action="store_true", help="run the built-in synthetic sequence")
     parser.add_argument("--frames", type=int, default=None, help="limit number of frames")
+    parser.add_argument("--resume", type=str, default=None, help="resume from a checkpoint.npz")
     parser.add_argument("--verbose", action="store_true")
     parser.add_argument("--device", type=str, default=None, help="torch device (default: cuda)")
     args = parser.parse_args(argv)
-    if not args.synthetic:
-        parser.error("--synthetic is required (the port has the synthetic dataset only)")
 
     from eggfusion_tpu_torch import config as cfglib
 
-    # tracking recovery is not ported: recover_after 0 disables it
-    cfg = cfglib.default_config(Tracking={"recover_after": 0})
-    cfg.System.save_dir = "results/synthetic_run_torch"
-    return run(cfg, max_frames=args.frames, verbose=args.verbose, device=args.device)
+    if args.config:
+        cfg = cfglib.load_config(args.config)
+    elif args.synthetic:
+        cfg = cfglib.default_config()
+        cfg.System.save_dir = "results/synthetic_run_torch"
+    else:
+        parser.error("either --config or --synthetic is required")
+    return run(cfg, max_frames=args.frames, verbose=args.verbose, resume=args.resume, device=args.device)
 
 
 if __name__ == "__main__":

@@ -1,16 +1,22 @@
-"""System orchestrator: the per-frame reconstruct pipeline (port of
-`eggfusion_tpu/system.py`, in part).
+"""System orchestrator: the per-frame reconstruct pipeline, the end of a
+run and its evaluations (port of `eggfusion_tpu/system.py`).
 
-reconstruct(frame) = track -> preprocess -> map -> postprocess ->
-trajectory bookkeeping. Ported: `preprocess_frame_map`,
-`postprocess_model_map`, and from `EGGFusion` the constructor,
-`reconstruct`, `preprocess`, `postprocess`, the trajectory bookkeeping and
-`evaluate_trajectory` (ATE, trajectory text files). Not ported: tracking
-recovery (a run that would need it raises), `finish` (global optimization,
-PLY and checkpoint export), resume/reload and the render/recon evaluations.
+reconstruct(frame) = [recover] -> track -> preprocess -> map -> postprocess
+-> trajectory bookkeeping. After `Tracking.recover_after` failed dense
+solves in a row, `_recover_tracking` re-anchors the model view at a
+descriptor-relocalized pose, the last converged pose or the last keyframe,
+and seeds the next solve from a coarse rotation sweep. `finish` runs the
+global keyframe optimization and writes `final_surfels.ply` and
+`checkpoint.npz`; `resume` continues a run from such a checkpoint (either
+package's) and `reload` loads a PLY map. The evaluations write the TUM
+trajectories and the render (keyframe and held-out views) and
+reconstruction metrics under `save_dir`. Not ported: the render evaluation
+of a dataset's test split (`evaluate_render_dataset`), which waits for the
+real datasets.
 """
 from __future__ import annotations
 
+import json
 import os
 import time as _time
 
@@ -20,12 +26,25 @@ import torch
 from eggfusion_tpu_torch.core import surfels as sf
 from eggfusion_tpu_torch.core.mapper import Mapping
 from eggfusion_tpu_torch.core.renderer import Renderer
-from eggfusion_tpu_torch.core.tracker import Tracker
+from eggfusion_tpu_torch.core.tracker import Tracker, dense_track
 from eggfusion_tpu_torch.geometry import transforms as tf
+from eggfusion_tpu_torch.geometry.camera import CameraIntrinsics
+from eggfusion_tpu_torch.io import checkpoint as ckpt
+from eggfusion_tpu_torch.io import ply as plyio
 from eggfusion_tpu_torch.ops import image as imops
 from eggfusion_tpu_torch.ops.pyramid import build_pyramid
 from eggfusion_tpu_torch.utils import eval as evalu
 from eggfusion_tpu_torch.utils.device import resolve_device
+
+
+def _cal_intrinsics(cfg) -> CameraIntrinsics:
+    cal = cfg.Dataset.Calibration
+    return CameraIntrinsics(fx=float(cal.fx), fy=float(cal.fy), cx=float(cal.cx), cy=float(cal.cy),
+                            width=int(cal.width), height=int(cal.height))
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def preprocess_frame_map(color, depth, vmap, nmap, mask, intr, w2c, reco_normal_thres: float):
@@ -107,6 +126,7 @@ class EGGFusion:
         self.model_map = None
         s = cfg.System
         self.save_dir = s.get("save_dir", "") or "results/run"
+        self.final_global_opt = bool(s.final_global_opt)
         self.reco_normal_thres = float(s.reco_normal_threshold)
         self.reco_depth_thres = float(s.reco_depth_threshold)
         self.reco_opacity_thres = float(s.reco_opacity_threshold)
@@ -116,15 +136,117 @@ class EGGFusion:
         self.bilateral = str(s.get("bilateral_mode", "exact"))
         self.traj = {"ts": [], "ref": [], "est": []}
         self.metrics = []
+        # held-out render evaluation: every `heldout_stride`-th frame (offset
+        # by half a stride, so it interleaves the keyframe checks) keeps its
+        # color, depth and tracked pose on the device; frames that become
+        # keyframes are left out at evaluation time. 0 disables.
+        self.heldout_stride = int(s.get("heldout_stride", 25))
+        self.heldout_max = int(s.get("heldout_max", 8))
+        self._heldout: list = []  # (uid, w2c, color, depth)
+        # recovery: descriptor relocalization (built at the first recovery)
+        # and the coarse rotation sweep that seeds the re-lock
+        self._reloc = None
+        self._reloc_enabled = bool(cfg.Tracking.get("reloc_descriptors", True))
+        self._rot_sweep = bool(cfg.Tracking.get("recovery_rotation_sweep", True))
+
+    # ---- recovery -----------------------------------------------------------
+
+    def _model_map_at(self, w2c) -> dict:
+        """A tracking model map (render + pyramid) at an arbitrary pose: the
+        re-anchor of recovery and resume."""
+        intr = _cal_intrinsics(self.cfg)
+        ia = intr.as_tensor(self.device)
+        out = self.mapper.render_model(self.mapper.surfels, w2c, ia, intr.width, intr.height)
+        opa = out["opacity"] > self.reco_opacity_thres
+        pyramid = build_pyramid(out["color"], out["depth"], opa.to(torch.float32), ia, nlevel=self.nlevel)
+        return {"transform": w2c, "pyramid": pyramid}
+
+    def _rotation_hypothesis_seed(self, frame) -> int:
+        """Solve the coarsest pyramid level alone from a fan of pure-rotation
+        seeds (yaw 0, +-8, +-16, +-24 deg; pitch +-8) and install the best
+        committed delta (least point-to-plane RMS) as the tracker's one-shot
+        seed. The commit rule is `dense_track_pose`'s. Returns the number of
+        committed hypotheses; reads the device on every hypothesis (recovery
+        is rare)."""
+        if self.model_map is None or "pyramid" not in self.model_map:
+            return 0
+        cfg = self.tracker.config
+        L = cfg.pyramid_level
+        pm = (self.model_map["pyramid"][L - 1],)
+        pf = (frame.pyramid[L - 1],)
+        coarse_cfg = cfg._replace(pyramid_level=1, pyramid_iters=(6,), solver_stride_fine=0)
+
+        def rot(axis, deg):
+            a = np.deg2rad(deg)
+            c, s = np.cos(a), np.sin(a)
+            R = np.eye(4, dtype=np.float32)
+            if axis == "y":
+                R[:3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+            else:
+                R[:3, :3] = [[1, 0, 0], [0, c, -s], [0, s, c]]
+            return R
+
+        hyps = [("y", d) for d in (0.0, 8.0, -8.0, 16.0, -16.0, 24.0, -24.0)]
+        hyps += [("x", d) for d in (8.0, -8.0)]
+        best = None
+        n_conv = 0
+        for axis, deg in hyps:
+            seed = torch.as_tensor(rot(axis, deg), device=self.device)
+            delta, conv, rms, n_icp = dense_track(pm, pf, seed, coarse_cfg)
+            ok = bool(conv) or (cfg.commit_min_count > 0 and float(rms) < cfg.commit_rms_m
+                                and float(n_icp) >= cfg.commit_min_count)
+            if ok:
+                n_conv += 1
+                score = float(rms)
+                if best is None or score < best[0]:
+                    best = (score, delta)
+        if best is not None:
+            self.tracker.seed_override = best[1]
+        return n_conv
+
+    def _recover_tracking(self, frame=None) -> bool:
+        """Re-anchor tracking after a failure streak. The anchor, best
+        first: (1) the pose that descriptor relocalization solves against
+        its best-matching keyframe; (2) the last pose whose dense solve
+        converged; (3) the last keyframe. The model view is rendered anew at
+        the anchor and the motion model cleared; a record goes to
+        `metrics`."""
+        km = self.mapper.keyframe_manager
+        anchor = anchor_id = None
+        reloc_inliers = 0
+        if frame is not None and self._reloc_enabled and km.keyframes:
+            if self._reloc is None:
+                from eggfusion_tpu_torch.core.reloc import DescriptorRelocalizer
+
+                self._reloc = DescriptorRelocalizer(self.cfg)
+            hit = self._reloc.relocalize(frame, km.keyframes)
+            if hit is not None:
+                w2c, anchor_id, reloc_inliers = hit
+                anchor = torch.as_tensor(w2c, device=self.device)
+        if anchor is None:
+            anchor, anchor_id = self.tracker.last_good_w2c, -1
+        if anchor is None:
+            ids = km.ids()
+            if not ids:
+                return False
+            kf = km.keyframes[ids[-1]]
+            anchor, anchor_id = kf.w2c, kf.uid
+        self.model_map = self._model_map_at(anchor)
+        self.tracker.reset_motion()
+        rec = {"frame": -1, "recovered_to_kf": anchor_id}
+        if reloc_inliers:
+            rec["reloc_inliers"] = reloc_inliers
+        if frame is not None and self._rot_sweep:
+            rec["rot_sweep_converged"] = self._rotation_hypothesis_seed(frame)
+        self.metrics.append(rec)
+        return True
 
     # ---- per-frame pipeline -------------------------------------------------
 
     def reconstruct(self, frame) -> None:
         t0 = _time.perf_counter()
         if self.model_map is not None and self.tracker.needs_recovery():
-            raise RuntimeError(
-                f"tracking failed {self.tracker._fail_streak} frames in a row at frame {frame.uid}; "
-                "tracking recovery is not ported (Tracking.recover_after 0 disables the check)")
+            self._recover_tracking(frame)
         self.tracker.tracking(frame, self.model_map)
         t1 = _time.perf_counter()
         self.preprocess(frame)
@@ -139,6 +261,10 @@ class EGGFusion:
             self.postprocess(frame)
         t3 = _time.perf_counter()
         self.append_trajectory(frame)
+        if self.heldout_stride > 0 and frame.uid % self.heldout_stride == self.heldout_stride // 2:
+            self._heldout.append((frame.uid, frame.w2c_matrix(), frame.color, frame.depth))
+            if len(self._heldout) > self.heldout_max:
+                self._heldout.pop(0)
         rec = {
             "frame": frame.uid,
             "track_ms": (t1 - t0) * 1e3,
@@ -185,7 +311,9 @@ class EGGFusion:
         self.traj["est"].append(frame.w2c_matrix())
 
     def _traj_np(self, key: str) -> np.ndarray:
-        """A trajectory as host c2w matrices (N, 4, 4)."""
+        """A trajectory as host c2w matrices (N, 4, 4). Entries are host c2w
+        arrays (ground truth, resumed, converted) or device w2c handles,
+        converted here in one transfer."""
         entries = self.traj[key]
         if not entries:
             return np.zeros((0, 4, 4), np.float32)
@@ -196,14 +324,228 @@ class EGGFusion:
                 entries[i] = conv[j]
         return np.stack(entries).astype(np.float32)
 
-    def evaluate_trajectory(self) -> float:
+    # ---- the end of a run ---------------------------------------------------
+
+    def finish(self) -> None:
+        """The global keyframe optimization (under `System.final_global_opt`),
+        then `final_surfels.ply` and `checkpoint.npz` under `save_dir`."""
+        print("Finishing...")
+        print(f"Keyframe IDs: {self.mapper.keyframe_manager.ids()}")
+        if self.final_global_opt:
+            self.mapper.keyframe_optimization()
+        os.makedirs(self.save_dir, exist_ok=True)
+        self.save_ply(os.path.join(self.save_dir, "final_surfels.ply"))
+        ckpt.save_checkpoint(
+            os.path.join(self.save_dir, "checkpoint.npz"), self.mapper.surfels,
+            extra={"traj_ref": self._traj_np("ref"), "traj_est": self._traj_np("est"),
+                   "ts": np.asarray(self.traj["ts"]), "time": np.int64(self.mapper.time)})
+
+    def save_ply(self, path: str) -> None:
+        s = self.mapper.surfels
+        act = _host(s.active)
+        # PLY rows (N, k...) are the transposed (k..., C) fields' full axis
+        # reversal
+        row = lambda x: _host(x).T[act]
+        plyio.save_ply(path, row(s.xyz), row(s.features_dc), row(s.features_rest), row(s.scaling),
+                       row(s.rotation), row(s.opacity))
+        print(f"Saved surfels to {path}")
+
+    def _fit_capacity(self, s: sf.SurfelMap) -> sf.SurfelMap:
+        """The map `s` in the configured `Viewer.max_surfels_num` slots (the
+        port's map does not grow). Slots at or above the watermark hold no
+        surfel, so a map of another capacity fits when its watermark does."""
+        cap = self.mapper.scfg.capacity
+        if s.capacity == cap:
+            return s
+        n = int(s.count)
+        if n > cap:
+            raise ValueError(f"the map holds {n} slots in use, more than Viewer.max_surfels_num = {cap}")
+        out = sf.SurfelMap.empty(self.mapper.scfg, device=self.device)
+        k = min(cap, s.capacity)
+        for f in sf.FIELDS[:-1]:
+            getattr(out, f)[..., :k] = getattr(s, f)[..., :k]
+        out.count = s.count.clone()
+        return out
+
+    def resume(self, path: str) -> None:
+        """Continue a run from a `checkpoint.npz` of either package: the whole
+        surfel map (fusion state included), the trajectory and the frame
+        clock; the model view is rendered at the last estimated pose and the
+        tracker takes that pose as its history."""
+        s, extra = ckpt.load_checkpoint(path, self.device)
+        self.mapper.surfels = self._fit_capacity(s)
+        self.mapper.forget_pending()
+        if "time" in extra:
+            self.mapper.time = int(extra["time"])
+        if "ts" in extra:
+            self.traj = {
+                "ts": list(np.asarray(extra["ts"])),
+                "ref": [np.asarray(m) for m in extra.get("traj_ref", [])],
+                "est": [np.asarray(m) for m in extra.get("traj_est", [])],
+            }
+        if self.traj["est"]:
+            last_c2w = np.asarray(self.traj["est"][-1])
+            w2c = torch.as_tensor(np.linalg.inv(last_c2w), dtype=torch.float32, device=self.device)
+            self.model_map = self._model_map_at(w2c)
+            self.tracker._push_pose(w2c)
+            self.tracker.initialized = True
+        print(f"Resumed {int(s.count)} surfels @ frame {self.mapper.time} from {path}")
+
+    def reload(self, path: str) -> None:
+        """Load a PLY map into the leading slots (its 3DGS fields; the
+        fusion state starts fresh). Raises when the PLY holds more surfels
+        than `Viewer.max_surfels_num`."""
+        data = plyio.load_ply(path)
+        s = self.mapper.surfels
+        n = len(data["xyz"])
+        if n > s.capacity:
+            raise ValueError(f"{path} holds {n} surfels, more than Viewer.max_surfels_num = {s.capacity}")
+        fields = ["xyz", "features_dc", "scaling", "rotation", "opacity"]
+        if data["features_rest"].shape[1] == s.features_rest.shape[1]:
+            fields.append("features_rest")
+        for f in fields:
+            # PLY rows (n, k...) -> leading slots of the (k..., C) field
+            getattr(s, f)[..., :n] = torch.as_tensor(np.ascontiguousarray(data[f].T), device=self.device)
+        s.active[:n] = True
+        s.count = torch.tensor(n, dtype=torch.int32, device=self.device)
+        self.mapper.forget_pending()
+        print(f"Reloaded {n} surfels from {path}")
+
+    # ---- evaluation ---------------------------------------------------------
+
+    def evaluate_trajectory(self, plot: bool = True) -> float:
         """ATE RMSE (cm) of the whole run; writes the reference and estimated
-        trajectories (N x 16 rows) under `save_dir`."""
+        trajectories under `save_dir` in TUM format and as N x 16 rows, and,
+        where matplotlib is present, the ATE curve and three trajectory
+        plots."""
         os.makedirs(self.save_dir, exist_ok=True)
         ref = self._traj_np("ref")
         est = self._traj_np("est")
+        ts = self.traj["ts"]
+        np.savetxt(os.path.join(self.save_dir, "trajectory_ref_tum.txt"),
+                   [evalu.matrix_to_tum(t, m) for t, m in zip(ts, ref)])
+        np.savetxt(os.path.join(self.save_dir, "trajectory_est_tum.txt"),
+                   [evalu.matrix_to_tum(t, m) for t, m in zip(ts, est)])
         np.savetxt(os.path.join(self.save_dir, "trajectory_ref.txt"), ref.reshape(-1, 16))
         np.savetxt(os.path.join(self.save_dir, "trajectory_est.txt"), est.reshape(-1, 16))
-        ate = float(evalu.cumulative_ate(ref[:, :3, 3], est[:, :3, 3])[-1])
+        ates = evalu.cumulative_ate(ref[:, :3, 3], est[:, :3, 3])
+        ate = float(ates[-1])
+        if plot:
+            try:
+                import matplotlib
+
+                matplotlib.use("Agg")
+                import matplotlib.pyplot as plt
+
+                plt.figure()
+                plt.plot(ates)
+                plt.title(f"ate:{ate}")
+                plt.savefig(os.path.join(self.save_dir, "ates.png"))
+                for a, b, name in [(0, 1, "xy"), (1, 2, "yz"), (0, 2, "xz")]:
+                    plt.figure()
+                    plt.plot(est[:, a, 3], est[:, b, 3])
+                    plt.plot(ref[:, a, 3], ref[:, b, 3])
+                    plt.legend(["es", "gt"])
+                    plt.savefig(os.path.join(self.save_dir, f"traj_{name}.jpg"))
+                plt.close("all")
+            except Exception as e:  # plotting is best-effort
+                print(f"plotting skipped: {e}")
         print(f"ATE RMSE: {ate:.05f}cm")
         return ate
+
+    def evaluate_recon(self, thresh: float = 0.01) -> dict:
+        """Accuracy, completeness and F-score at `thresh` (meters) of the map
+        against the keyframes' depth clouds at their solved poses; each
+        surfel counts as its center and four points at +-0.7 sigma along its
+        tangent axes. Writes `recon_metrics.json`."""
+        clouds = []
+        for kf in self.mapper.keyframe_manager.keyframes.values():
+            # the cloud at least as dense as the map: every pixel at test
+            # sizes, every 4th at full width
+            clouds.append(evalu.unproject_depth(_host(kf.maps["depth"]), _host(kf.intr),
+                                                np.linalg.inv(_host(kf.w2c)),
+                                                stride=max(1, min(4, kf.width // 320))))
+        s = self.mapper.surfels
+        act = _host(s.active)
+        xyz = _host(s.xyz).T[act]
+        q = _host(s.rotation).T[act]  # (M, 4) wxyz, unnormalized
+        q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+        w, x, y, z = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+        tu = np.stack([1 - 2 * (y * y + z * z), 2 * (x * y + w * z), 2 * (x * z - w * y)], 1)
+        tv = np.stack([2 * (x * y - w * z), 1 - 2 * (x * x + z * z), 2 * (y * z + w * x)], 1)
+        sc = np.exp(_host(s.scaling).T[act][:, :2])
+        du = 0.7 * sc[:, :1] * tu
+        dv = 0.7 * sc[:, 1:2] * tv
+        samples = np.concatenate([xyz, xyz + du, xyz - du, xyz + dv, xyz - dv])
+        rep = evalu.eval_recon(samples, clouds, thresh=thresh) if clouds else {}
+        if rep:
+            os.makedirs(self.save_dir, exist_ok=True)
+            with open(os.path.join(self.save_dir, "recon_metrics.json"), "w") as f:
+                json.dump(rep, f, indent=2)
+            print("Recon metrics:", {k: round(v, 5) if isinstance(v, float) else v for k, v in rep.items()})
+        return rep
+
+    @staticmethod
+    def _device_render_metrics(ref_color, ref_depth, est_color, est_depth) -> torch.Tensor:
+        """(2,) [PSNR, masked depth-L1] computed on the device."""
+        mse = torch.mean((ref_color - est_color) ** 2)
+        psnr = -10.0 * torch.log10(torch.clamp(mse, min=1e-12))
+        m = ref_depth > 0
+        dl1 = (torch.sum(torch.where(m, torch.abs(ref_depth - est_depth), torch.zeros_like(ref_depth)))
+               / torch.clamp(torch.sum(m.to(torch.float32)), min=1.0))
+        return torch.stack([psnr, dl1])
+
+    def evaluate_render_heldout(self) -> dict:
+        """PSNR and depth-L1 of renders at the stored non-keyframe poses
+        (views the optimizer never fit), computed on the device."""
+        kf_uids = set(self.mapper.keyframe_manager.keyframes.keys())
+        intr = _cal_intrinsics(self.cfg)
+        ia = intr.as_tensor(self.device)
+        rows = []
+        for uid, w2c, color, depth in self._heldout:
+            if uid in kf_uids:
+                continue
+            out = self.mapper.render_model(self.mapper.surfels, w2c, ia, intr.width, intr.height)
+            v = _host(self._device_render_metrics(color, depth, out["color"], out["depth"]))
+            rows.append({"frame": uid, "psnr": float(v[0]), "depth_l1": float(v[1])})
+        if not rows:
+            return {}
+        return {
+            "per_frame": rows,
+            "mean": {"psnr": float(np.mean([r["psnr"] for r in rows])),
+                     "depth_l1": float(np.mean([r["depth_l1"] for r in rows]))},
+            "n_frames": len(rows),
+        }
+
+    def evaluate_render(self) -> dict:
+        """Render metrics over the keyframes (host SSIM and MS-SSIM, each
+        keyframe's maps pulled once) and a held-out section (see
+        `evaluate_render_heldout`); writes `render_metrics.json` and returns
+        the keyframe means."""
+        results = []
+        for kf in self.mapper.keyframe_manager.keyframes.values():
+            out = self.mapper.render_model(self.mapper.surfels, kf.w2c, kf.intr, kf.width, kf.height)
+            results.append(evalu.eval_render(_host(kf.maps["color"]), _host(kf.maps["depth"]),
+                                             _host(out["color"]), _host(out["depth"])))
+        if not results:
+            return {}
+
+        def nanmean(vals):
+            # notes (lpips_note) pass through; values are numbers or None
+            msgs = [v for v in vals if isinstance(v, str)]
+            if msgs:
+                return msgs[0]
+            vals = [v for v in vals if v is not None and np.isfinite(v)]
+            return float(np.mean(vals)) if vals else None
+
+        agg = {k: nanmean([r[k] for r in results]) for k in results[0]}
+        held_out = self.evaluate_render_heldout()
+        san = lambda v: v if isinstance(v, str) or v is None or np.isfinite(v) else None
+        os.makedirs(self.save_dir, exist_ok=True)
+        with open(os.path.join(self.save_dir, "render_metrics.json"), "w") as f:
+            json.dump({"per_keyframe": [{k: san(v) for k, v in r.items()} for r in results],
+                       "mean": agg, "held_out": held_out}, f, indent=2)
+        print("Render metrics:", agg)
+        if held_out:
+            print("Held-out render metrics:", held_out["mean"], f"({held_out['n_frames']} non-keyframe views)")
+        return agg

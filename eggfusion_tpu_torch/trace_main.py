@@ -4,7 +4,7 @@
 
 Runs `EGGFusion.reconstruct` over the synthetic sequence in the slice
 configuration (`config.slice_config`: `bench.py`'s 1280x704 workload with a
-fixed 262144-slot map, tracking recovery off and no frame cycling): `--warmup`
+fixed 262144-slot map and no frame cycling): `--warmup`
 frames, then half of the rest timed without the profiler, then the other
 half under `torch.profiler` (CPU + CUDA). Prints one JSON line: the
 untraced frame time, device time per frame and by kernel name from the

@@ -20,6 +20,10 @@ from eggfusion_tpu_torch.ops import raster_common as trc
 from eggfusion_tpu_torch.ops import raster_tile as trt
 from eggfusion_tpu_torch.ops.raster_slabs import adversarial_slab
 
+# the test workers share the CPU: a small intra-op pool per process keeps
+# them from oversubscribing it
+torch.set_num_threads(2)
+
 # the pixel centres of one 32x32 sub-column at the origin
 _XS, _YS = (g.to(torch.float32) for g in torch.meshgrid(torch.arange(trt.SUB_W), torch.arange(trt.TILE_H),
                                                        indexing="xy"))

@@ -3,13 +3,17 @@ Adam, and one `map_update` and one `opt_step` of `Mapping` started from the
 same surfel map (moved across with `convert.py`) and the same keyframe, on
 the configuration of `tests/test_system_e2e.py` (120x90, 6144 surfels,
 SH 0) with the all-pairs "xla" compositor. The port replays the JAX spawn
-uniforms.
+uniforms. The JAX compositor runs with 8 surfels per scan step instead of
+32: the same blend, one surfel after another in depth order, compiled in a
+fraction of the time.
 
 Tolerances: fused surfel fields 1e-5 (float32 information-filter updates);
 losses 1e-5 relative; after one Adam step, parameters within 1e-6 except
 where a gradient is at float32 noise level, whose step direction may flip:
 those are bounded by twice the learning rate and must be rare.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,11 +21,13 @@ import pytest
 import torch
 
 from eggfusion_tpu import config as jcfg
+import eggfusion_tpu.core.renderer as j_renderer
 from eggfusion_tpu.core import mapper as jmapper
 from eggfusion_tpu.core.renderer import Renderer as JRenderer
 from eggfusion_tpu.data.datasets import load_dataset as j_load_dataset
 from eggfusion_tpu.main import build_frame as j_build_frame
 from eggfusion_tpu.ops import fusion as jfusion
+from eggfusion_tpu.ops.raster_xla import render_xla as j_render_xla
 from eggfusion_tpu.system import preprocess_frame_map as j_preprocess
 from eggfusion_tpu_torch import config as tcfg
 from eggfusion_tpu_torch.convert import surfel_map_from_numpy, surfel_map_to_numpy
@@ -29,6 +35,10 @@ from eggfusion_tpu_torch.core import mapper as tmapper
 from eggfusion_tpu_torch.core import surfels as tsf
 from eggfusion_tpu_torch.core.renderer import Renderer as TRenderer
 from eggfusion_tpu_torch.ops import fusion as tfusion
+
+# the test workers share the CPU: a small intra-op pool per process keeps
+# them from oversubscribing it
+torch.set_num_threads(2)
 
 W, H = 120, 90
 
@@ -80,16 +90,19 @@ def _fm_torch(fm):
 
 @pytest.fixture(scope="module")
 def setup():
-    """A JAX map after frame 0's spawn, frame 1's frame_map, and both mappers."""
-    cfg_j, cfg_t = _cfg(jcfg), _cfg(tcfg)
-    jm = jmapper.Mapping(cfg_j, JRenderer(cfg_j))
-    tm = tmapper.Mapping(cfg_t, TRenderer(cfg_t, "cpu"), "cpu", random_source=JaxDraws())
-    dataset = j_load_dataset(cfg_j)
-    f0, fm0 = _frame_map(dataset, 0)
-    s0, _, _ = jm._map_update(jm.surfels, fm0, f0.w2c_matrix(), f0.intr, jnp.int32(0), jm._rng, W, H, True,
-                              True, model_cap=jm.model_cap, conv=jnp.bool_(True), down=1, do_render=True)
-    f1, fm1 = _frame_map(dataset, 1)
-    return jm, tm, _map_np(s0), (f0, fm0), (f1, fm1)
+    """A JAX map after frame 0's spawn, frame 1's frame_map, and both mappers;
+    the JAX renders of the module's tests composite 8 surfels per step."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_renderer, "render_xla", functools.partial(j_render_xla, chunk=8))
+        cfg_j, cfg_t = _cfg(jcfg), _cfg(tcfg)
+        jm = jmapper.Mapping(cfg_j, JRenderer(cfg_j))
+        tm = tmapper.Mapping(cfg_t, TRenderer(cfg_t, "cpu"), "cpu", random_source=JaxDraws())
+        dataset = j_load_dataset(cfg_j)
+        f0, fm0 = _frame_map(dataset, 0)
+        s0, _, _ = jm._map_update(jm.surfels, fm0, f0.w2c_matrix(), f0.intr, jnp.int32(0), jm._rng, W, H, True,
+                                  True, model_cap=jm.model_cap, conv=jnp.bool_(True), down=1, do_render=True)
+        f1, fm1 = _frame_map(dataset, 1)
+        yield jm, tm, _map_np(s0), (f0, fm0), (f1, fm1)
 
 
 def test_fuse_frame(setup):

@@ -17,6 +17,10 @@ from eggfusion_tpu_torch.geometry import lie as tlie
 from eggfusion_tpu_torch.geometry import sh as tsh
 from eggfusion_tpu_torch.geometry import transforms as ttf
 
+# the test workers share the CPU: a small intra-op pool per process keeps
+# them from oversubscribing it
+torch.set_num_threads(2)
+
 RNG = np.random.default_rng(0)
 ROTVECS = [np.zeros(3), [1e-7, 0, 0], [0.3, -0.2, 0.1], [0.0, 2.5, 0.4], [1.0, 1.0, -1.0]]
 

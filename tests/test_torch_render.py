@@ -3,6 +3,10 @@ gradients, the tile binning, and the tile compositor (its plain PyTorch
 kernels on the CPU) against `render_pallas(interpret=True)`, on the scene
 and sizes of `tests/test_raster_pallas.py` (160x96, CAP 256, 64 surfels).
 
+The JAX all-pairs oracle runs with 8 surfels per scan step instead of 32:
+the same blend, one surfel after another in depth order, compiled in a
+fraction of the time.
+
 Tolerances: images 1e-5 absolute plus 1e-5 relative (float32 compositing
 in a different association order); gradients 1e-4 relative to each field's largest
 gradient (sums over pixels and entries run in another order). Binning is
@@ -23,6 +27,10 @@ from eggfusion_tpu_torch.core import surfels as tsf
 from eggfusion_tpu_torch.ops import raster_common as trc
 from eggfusion_tpu_torch.ops import raster_tile as trt
 from eggfusion_tpu_torch.ops.raster_xla import render_xla as t_render_xla
+
+# the test workers share the CPU: a small intra-op pool per process keeps
+# them from oversubscribing it
+torch.set_num_threads(2)
 
 W, H = 160, 96
 INTR = np.asarray([100.0, 100.0, W / 2 - 0.5, H / 2 - 0.5], np.float32)
@@ -114,7 +122,8 @@ def test_project_surfels(scene):
 
 def test_render_xla_outputs_and_grads(scene):
     pj, pt = scene
-    oj, gj = _jax_value_and_grads(pj, lambda p: j_render_xla(p, jnp.eye(4), jnp.asarray(INTR), W, H, sh_degree=0))
+    oj, gj = _jax_value_and_grads(pj, lambda p: j_render_xla(p, jnp.eye(4), jnp.asarray(INTR), W, H, sh_degree=0,
+                                                             chunk=8))
     ot, gt = _torch_value_and_grads(pt, lambda p: t_render_xla(p, torch.eye(4), torch.from_numpy(INTR), W, H, sh_degree=0))
     _close_out(oj, ot)
     _close_grads(gj, gt)

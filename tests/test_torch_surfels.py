@@ -17,6 +17,10 @@ from eggfusion_tpu_torch.convert import surfel_map_from_numpy, surfel_map_to_num
 from eggfusion_tpu_torch.core import surfels as tsf
 from eggfusion_tpu_torch.ops import fusion as tfusion
 
+# the test workers share the CPU: a small intra-op pool per process keeps
+# them from oversubscribing it
+torch.set_num_threads(2)
+
 CAP = 64
 _j_append = jax.jit(jsf.append_surfels, static_argnums=3)
 

@@ -29,6 +29,10 @@ from eggfusion_tpu_torch.ops import image as tim
 from eggfusion_tpu_torch.ops import pyramid as tpyr
 from eggfusion_tpu_torch.ops import reduce as tgn
 
+# the test workers share the CPU: a small intra-op pool per process keeps
+# them from oversubscribing it
+torch.set_num_threads(2)
+
 INTR = CameraIntrinsics(fx=72.0, fy=72.0, cx=39.5, cy=29.5, width=80, height=60)
 INTR_NP = np.asarray([72.0, 72.0, 39.5, 29.5], np.float32)
 RNG = np.random.default_rng(0)
