@@ -49,7 +49,32 @@ Run from the root of a checkout. Phases, each printing one JSON line:
   6. resume — a new `EGGFusion` resumes from the main phase's checkpoint and
               reconstructs frames 48-51; fails unless the frame clock and
               the active surfels equal the saved ones at load and the ATE
-              over all 52 frames is < 1 cm.
+              over all 52 frames is < 1 cm;
+  7. tum    — `configs/tum/fr1_desk.yaml` as it stands (640x480, its five
+              lens coefficients, `use_sparse`, a 3M `max_surfels_num` on the
+              capacity ladder) through `main.run` on a 60-frame TUM-layout
+              recording written by the port's PNG writer under build/ (the
+              `room` scene on an orbit of 1 degree a frame, forward-distorted,
+              sensor noise, jittered timestamps, one unmatched image); prints
+              the capacity of every frame, the sparse-seed count, FPS,
+              frame-0 seconds, the prefetch thread's ms per frame (decode
+              and undistortion; the first includes the g++ builds of the
+              frame loader and the PNG unfilter), keyframe PSNR /
+              depth-L1, recon F1, and the steady FPS over 20 frames on the
+              ladder and on a fixed 3M map in turns; holds every kernel to
+              its plain version (and bit for bit to its build without the
+              cull) on the final map seen from the last frame, 75 tiles, at
+              the model render's and the opt step's shapes (phase
+              "tum_check": a value off by more than the tolerance passes
+              only if the plain version is as far off its float64
+              evaluation, as at edge-on plane depths); runs the same
+              configuration on 16 noise-free frames of the `corner` scene,
+              where the dense solve is well posed; fails unless the
+              undistortion is live, sparse seeds cover half the frames, ATE <
+              3 cm, the map is finite, keyframe PSNR > 12 dB, depth-L1 <
+              0.15 m and recon F1 > 0.7, the map grew and ended below 3M,
+              the forward and backward kernels ran, and the dense solve
+              converged on half the corner frames with ATE < 1 cm.
 Then the kernels line, the card's `nvidia-smi` name and power limit, and
 the last line {"ok": true, "device": {...}}. Any failure exits non-zero
 before the last line. Needs no network; JAX is not imported.
@@ -59,6 +84,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -158,18 +184,41 @@ def ptxas_usage(report: dict) -> dict:
     return out
 
 
-def main_path_view(cfglib, torch):
-    """The map spawned from frame 0 of the main path's sequence, seen from
-    frame 1's pose as the next frame's model render sees it: its size, the
-    camera and `slab(cap, need_back) -> (entries, counts)` binning it at a
-    cap. Shared by the kernel checks and the kernel probe."""
+def map_view(torch, s, w2c, intr, W: int, H: int) -> dict:
+    """The surfel map `s` seen from the camera `w2c` as a model render sees
+    it: the camera, the tile grid, `slab(cap, need_back) -> (entries,
+    counts)` binning it at a cap, and `keep`, the opt step's tile subset
+    (about half the tiles, from a fixed seed)."""
     from eggfusion_tpu_torch.core import surfels as sf
+    from eggfusion_tpu_torch.ops import raster_common as rc
+    from eggfusion_tpu_torch.ops import raster_tile as rt
+
+    dev = w2c.device
+    hp, wp, tx, ty = rt._grid(W, H)
+    n_tiles = tx * ty
+    with torch.no_grad():
+        proj = rc.project_surfels(sf.render_params(s), w2c, intr, W, H, 0)
+    attrs = torch.cat([proj.mean2d, proj.conic, proj.opacity[None], proj.color, proj.normal_cam,
+                       proj.p_cam, torch.ones_like(proj.opacity)[None]], dim=0).T.contiguous()
+
+    def slab(cap, need_back=False):
+        sid, counts, _, _ = rt._bin_entries(proj.depth, proj.mean2d, proj.radius, proj.valid,
+                                            n_tiles, tx, ty, cap, need_back=need_back)
+        return attrs[sid].contiguous(), counts
+
+    keep = torch.rand(n_tiles, generator=torch.Generator(device=dev).manual_seed(7), device=dev) < 0.5
+    return {"surfels": int(s.num_active()), "size": [W, H], "intr": intr, "tx": tx, "n_tiles": n_tiles,
+            "hp": hp, "wp": wp, "slab": slab, "keep": keep}
+
+
+def main_path_view(cfglib, torch) -> dict:
+    """The map spawned from frame 0 of the main path's sequence, seen from
+    frame 1's pose as the next frame's model render sees it (`map_view`).
+    Shared by the kernel checks and the kernel probe."""
     from eggfusion_tpu_torch.core.mapper import Mapping
     from eggfusion_tpu_torch.core.renderer import Renderer
     from eggfusion_tpu_torch.data.datasets import load_dataset
     from eggfusion_tpu_torch.main import build_frame
-    from eggfusion_tpu_torch.ops import raster_common as rc
-    from eggfusion_tpu_torch.ops import raster_tile as rt
     from eggfusion_tpu_torch.system import preprocess_frame_map
 
     dev = torch.device("cuda")
@@ -185,23 +234,7 @@ def main_path_view(cfglib, torch):
     with torch.no_grad():
         s, _, _ = mapper.map_update(mapper.surfels, fm, frame.w2c_matrix(), frame.intr, 0, frame.width,
                                     frame.height, True, True)
-    w2c = torch.as_tensor(ds[1][4], device=dev)
-    W, H = frame.width, frame.height
-    hp, wp, tx, ty = rt._grid(W, H)
-    n_tiles = tx * ty
-    proj = rc.project_surfels(sf.render_params(s), w2c, frame.intr, W, H, 0)
-    attrs = torch.cat([proj.mean2d, proj.conic, proj.opacity[None], proj.color, proj.normal_cam,
-                       proj.p_cam, torch.ones_like(proj.opacity)[None]], dim=0).T.contiguous()
-
-    def slab(cap, need_back=False):
-        sid, counts, _, _ = rt._bin_entries(proj.depth, proj.mean2d, proj.radius, proj.valid,
-                                            n_tiles, tx, ty, cap, need_back=need_back)
-        return attrs[sid].contiguous(), counts
-
-    # the opt step's tile subset: about half the tiles, from a fixed seed
-    keep = torch.rand(n_tiles, generator=torch.Generator(device=dev).manual_seed(7), device=dev) < 0.5
-    return {"surfels": int(s.num_active()), "intr": frame.intr, "tx": tx, "n_tiles": n_tiles, "hp": hp,
-            "wp": wp, "slab": slab, "keep": keep}
+    return map_view(torch, s, torch.as_tensor(ds[1][4], device=dev), frame.intr, frame.width, frame.height)
 
 
 def pair_counts(rt, entries, counts, tx, cap) -> dict:
@@ -239,16 +272,55 @@ def same_bits(a, b) -> bool:
     return all(bool((x == y).all()) for x, y in zip(a, b))
 
 
-def check_kernels(cfglib, torch) -> dict:
-    """Phase 2: each kernel against its plain version on a real map, and
-    bit for bit against its build without the cull."""
+def fwd_misses(k_out, p_out, p64) -> tuple[int, int, float, float]:
+    """Pixels where the forward misses FWD_TOL of its float32 plain version
+    and also lies further from the plain version's float64 evaluation than
+    FWD_TOL plus the float32 plain version's own distance from it (the
+    float32 evaluation is ill-conditioned there, e.g. the plane depth of a
+    surfel seen edge-on); the pixels held by that second rule; the largest
+    errors of the kernel and of the float32 plain version against float64,
+    relative to 1 + |float64|."""
+    misses = held = 0
+    k64 = p64_rel = 0.0
+    for a, b, c in zip(k_out, p_out, p64):
+        a, b = a.double(), b.double()
+        off = (a - b).abs() > FWD_TOL * (1 + b.abs())
+        within = (a - c).abs() <= FWD_TOL * (1 + c.abs()) + (b - c).abs()
+        misses += int((off & ~within).sum())
+        held += int((off & within).sum())
+        k64 = max(k64, float(((a - c).abs() / (1 + c.abs())).max()))
+        p64_rel = max(p64_rel, float(((b - c).abs() / (1 + c.abs())).max()))
+    return misses, held, k64, p64_rel
+
+
+def bwd_misses(d_k, d_p, d_64) -> tuple[int, int, float, float]:
+    """As `fwd_misses` for the backward, with errors relative to each
+    gradient column's largest plain value (BWD_TOL)."""
+    d_k, d_p = d_k.double(), d_p.double()
+    scale = d_p.abs().amax(dim=(0, 1)).clamp(min=1e-30)
+    off = (d_k - d_p).abs() > BWD_TOL * scale
+    within = (d_k - d_64).abs() <= BWD_TOL * scale + (d_p - d_64).abs()
+    rel = lambda x: float(((x - d_64).abs().amax(dim=(0, 1)) / scale)[:15].max())
+    return int((off & ~within)[..., :15].sum()), int((off & within)[..., :15].sum()), rel(d_k), rel(d_p)
+
+
+def check_view(torch, view: dict, timed: bool, phase: str, f64_band: bool = False) -> dict:
+    """Each kernel against its plain version on the binned map of `view`,
+    at the shapes a frame gives it: the forward, full and geometry-only, at
+    CAP 2048 over all tiles (the model render), the full forward and the
+    backward at CAP 1024 over the opt step's tile subset. Each is held to
+    its tolerance and bit for bit to its build without the cull; with
+    `f64_band`, a value off its float32 plain version by more than the
+    tolerance passes only where the plain version is itself as far off its
+    float64 evaluation (`fwd_misses`, `bwd_misses`). With `timed`, kernel
+    and plain version are timed too. Emits one line per kernel under
+    `phase`."""
     from eggfusion_tpu_torch.ops import cuda_build
     from eggfusion_tpu_torch.ops import raster_tile as rt
 
-    view = main_path_view(cfglib, torch)
     intr, tx, n_tiles, hp, wp = (view[k] for k in ("intr", "tx", "n_tiles", "hp", "wp"))
     fwd_nc, bwd_nc = no_cull(rt, cuda_build)
-    results = {"surfels": view["surfels"], "tiles": n_tiles}
+    results = {"surfels": view["surfels"], "size": view["size"], "tiles": n_tiles}
 
     def subset(counts):
         return torch.where(view["keep"][:, None], counts, torch.zeros_like(counts))
@@ -258,18 +330,27 @@ def check_kernels(cfglib, torch) -> dict:
         torch.cuda.synchronize()
         p_out = rt._split(rt._tiles_to_image(rt.composite_plain(entries, counts, intr, tx, cap, geom), tx), geom)
         if not all(torch.isfinite(x).all() for x in k_out):
-            fail(f"forward (geom={geom}, cap {cap}): non-finite output")
+            fail(f"{phase}: forward (geom={geom}, cap {cap}): non-finite output")
         rel, ab = fwd_errors(k_out, p_out)
-        if rel > FWD_TOL:
-            fail(f"forward (geom={geom}, cap {cap}): kernel differs from its plain version by {rel}")
+        r = {"max_abs_err": ab, "max_rel_err": rel, "no_cull_same_bits": True}
+        if f64_band and rel > FWD_TOL:
+            p64 = rt._split(rt._tiles_to_image(rt.composite_plain(entries.double(), counts, intr.double(), tx, cap,
+                                                                  geom), tx), geom)
+            misses, held, k64, p64_rel = fwd_misses(k_out, p_out, p64)
+            r.update(band_held_values=held, rel_err_vs_f64=k64, plain_rel_err_vs_f64=p64_rel)
+            if misses:
+                fail(f"{phase}: forward (geom={geom}, cap {cap}): {misses} values differ from the plain version "
+                     f"by more than {FWD_TOL} and from its float64 evaluation by more than the plain version")
+        elif rel > FWD_TOL:
+            fail(f"{phase}: forward (geom={geom}, cap {cap}): kernel differs from its plain version by {rel}")
         if not same_bits(k_out, fwd_nc(entries, counts, intr, tx, cap, geom=geom)):
-            fail(f"forward (geom={geom}, cap {cap}): the row cull changes the output")
-        call = lambda: rt.composite_fwd(entries, counts, intr, tx, cap, geom=geom)
-        times = cuda_times(call, reps=20)
-        return {"max_abs_err": ab, "max_rel_err": rel, "ms": statistics.median(times),
-                "ms_min_max": [min(times), max(times)], "stream_ms": stream_ms(call),
-                "no_cull_stream_ms": stream_ms(lambda: fwd_nc(entries, counts, intr, tx, cap, geom=geom)),
-                "no_cull_same_bits": True}
+            fail(f"{phase}: forward (geom={geom}, cap {cap}): the row cull changes the output")
+        if timed:
+            call = lambda: rt.composite_fwd(entries, counts, intr, tx, cap, geom=geom)
+            times = cuda_times(call, reps=20)
+            r.update(ms=statistics.median(times), ms_min_max=[min(times), max(times)], stream_ms=stream_ms(call),
+                     no_cull_stream_ms=stream_ms(lambda: fwd_nc(entries, counts, intr, tx, cap, geom=geom)))
+        return r
 
     # ---- forward, full and geometry-only, CAP 2048 over all tiles (the model
     # render), and the full forward at the opt step's shape too ----
@@ -280,17 +361,19 @@ def check_kernels(cfglib, torch) -> dict:
     opt_counts = subset(opt_counts)
     for geom, name in ((False, "composite_fwd"), (True, "composite_geom")):
         r = check_fwd(entries, counts, cap, geom)
-        plain_ms = cuda_ms(lambda: rt.composite_plain(entries, counts, intr, tx, cap, geom), reps=2, warm=1)
-        planes = 3 if geom else 9
-        bytes_moved = pc["entries"] * 64 + counts.numel() * 4 + 16 + planes * hp * wp * 4
-        results[name] = {"cap": cap, **pc, **r, "tol": FWD_TOL, "plain_ms": plain_ms,
-                         **bound(name, pc, bytes_moved)}
+        results[name] = {"cap": cap, **pc, **r, "tol": FWD_TOL}
+        if timed:
+            plain_ms = cuda_ms(lambda: rt.composite_plain(entries, counts, intr, tx, cap, geom), reps=2, warm=1)
+            planes = 3 if geom else 9
+            bytes_moved = pc["entries"] * 64 + counts.numel() * 4 + 16 + planes * hp * wp * 4
+            results[name].update(plain_ms=plain_ms, **bound(name, pc, bytes_moved))
         if not geom:
             r2 = check_fwd(opt_entries, opt_counts, 1024, False)
-            results[name]["ms_by_shape"] = {"cap2048_all_tiles": r["ms"], "cap1024_half_tiles": r2["ms"]}
+            if timed:
+                results[name]["ms_by_shape"] = {"cap2048_all_tiles": r["ms"], "cap1024_half_tiles": r2["ms"]}
             results[name]["opt_shape"] = {"cap": 1024, "kept_tiles": int(view["keep"].sum()),
                                           **pair_counts(rt, opt_entries, opt_counts, tx, 1024), **r2}
-        emit({"phase": "check", "kernel": name, **results[name]})
+        emit({"phase": phase, "kernel": name, **results[name]})
 
     # ---- backward, CAP 1024 with a half tile subset (the opt step) ----
     cap = 1024
@@ -303,29 +386,44 @@ def check_kernels(cfglib, torch) -> dict:
     d_p = rt.composite_bwd_plain(entries, counts, intr, *cots, tx, cap, tile_batch=16)
     rel, ab = bwd_errors(d_k, d_p)
     pc = pair_counts(rt, entries, counts, tx, cap)
-    call = lambda: rt.composite_bwd(entries, counts, intr, *cots, T, tx, cap)
-    times = cuda_times(call, reps=20)
-    plain_ms = cuda_ms(lambda: rt.composite_bwd_plain(entries, counts, intr, *cots, tx, cap, tile_batch=16),
-                       reps=1, warm=0)
-    bytes_moved = pc["entries"] * 64 + counts.numel() * 4 + 16 + 10 * hp * wp * 4 + entries.numel() * 4
     results["composite_bwd"] = {"cap": cap, "kept_tiles": int(view["keep"].sum()), **pc,
-                                "max_abs_err": ab, "max_rel_err": rel, "tol": BWD_TOL,
-                                "ms": statistics.median(times), "ms_min_max": [min(times), max(times)],
-                                "stream_ms": stream_ms(call),
-                                "no_cull_stream_ms": stream_ms(lambda: bwd_nc(entries, counts, intr, *cots, T,
-                                                                              tx, cap)),
-                                "plain_ms": plain_ms, **bound("composite_bwd", pc, bytes_moved)}
-    emit({"phase": "check", "kernel": "composite_bwd", **results["composite_bwd"]})
+                                "max_abs_err": ab, "max_rel_err": rel, "tol": BWD_TOL}
+    misses = 0
+    if f64_band and rel > BWD_TOL:
+        d_64 = rt.composite_bwd_plain(entries.double(), counts, intr.double(), *(c.double() for c in cots), tx, cap,
+                                      tile_batch=16)
+        misses, held, k64, p64_rel = bwd_misses(d_k, d_p, d_64)
+        results["composite_bwd"].update(band_held_values=held, rel_err_vs_f64=k64, plain_rel_err_vs_f64=p64_rel)
+    if timed:
+        call = lambda: rt.composite_bwd(entries, counts, intr, *cots, T, tx, cap)
+        times = cuda_times(call, reps=20)
+        plain_ms = cuda_ms(lambda: rt.composite_bwd_plain(entries, counts, intr, *cots, tx, cap, tile_batch=16),
+                           reps=1, warm=0)
+        bytes_moved = pc["entries"] * 64 + counts.numel() * 4 + 16 + 10 * hp * wp * 4 + entries.numel() * 4
+        results["composite_bwd"].update(
+            ms=statistics.median(times), ms_min_max=[min(times), max(times)], stream_ms=stream_ms(call),
+            no_cull_stream_ms=stream_ms(lambda: bwd_nc(entries, counts, intr, *cots, T, tx, cap)),
+            plain_ms=plain_ms, **bound("composite_bwd", pc, bytes_moved))
+    emit({"phase": phase, "kernel": "composite_bwd", **results["composite_bwd"]})
     if not torch.isfinite(d_k).all():
-        fail("composite_bwd: non-finite gradients")
-    if rel > BWD_TOL:
-        fail(f"composite_bwd: kernel differs from its plain version by {rel} (relative)")
+        fail(f"{phase}: composite_bwd: non-finite gradients")
+    if misses:
+        fail(f"{phase}: composite_bwd: {misses} gradients differ from the plain version by more than {BWD_TOL} "
+             f"and from its float64 evaluation by more than the plain version")
+    if rel > BWD_TOL and not f64_band:
+        fail(f"{phase}: composite_bwd: kernel differs from its plain version by {rel} (relative)")
     # determinism: a second launch gives the same bits, and so does the build without the cull
     if not torch.equal(d_k, rt.composite_bwd(entries, counts, intr, *cots, T, tx, cap)):
-        fail("composite_bwd: two launches disagree")
+        fail(f"{phase}: composite_bwd: two launches disagree")
     if not torch.equal(d_k, bwd_nc(entries, counts, intr, *cots, T, tx, cap)):
-        fail("composite_bwd: the row cull changes the gradients")
+        fail(f"{phase}: composite_bwd: the row cull changes the gradients")
     return results
+
+
+def check_kernels(cfglib, torch) -> dict:
+    """Phase 2: each kernel against its plain version on the main path's
+    map, bit for bit against its build without the cull, and timed."""
+    return check_view(torch, main_path_view(cfglib, torch), timed=True, phase="check")
 
 
 def check_adversarial(torch) -> dict:
@@ -587,6 +685,270 @@ def check_resume(cfglib, torch, ckpt_path: str, saved, n_more: int = 4) -> dict:
     return out
 
 
+TUM_CONFIG = os.path.join(REPO, "configs", "tum", "fr1_desk.yaml")
+
+
+def inverse_distortion(intr, dist) -> tuple:
+    """(sx, sy): the undistorted pixel that each pixel of a camera with the
+    radial-tangential coefficients `dist` (k1, k2, p1, p2, k3) sees, by 20
+    fixed-point steps of x_u = (x_d - tangential(x_u)) / radial(x_u); with
+    the pixel residual of the forward model."""
+    k1, k2, p1, p2, k3 = dist
+    ys, xs = np.meshgrid(np.arange(intr.height, dtype=np.float64), np.arange(intr.width, dtype=np.float64),
+                         indexing="ij")
+    xd, yd = (xs - intr.cx) / intr.fx, (ys - intr.cy) / intr.fy
+    xu, yu = xd.copy(), yd.copy()
+    for _ in range(21):
+        r2 = xu * xu + yu * yu
+        radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        tx, ty = 2 * p1 * xu * yu + p2 * (r2 + 2 * xu * xu), p1 * (r2 + 2 * yu * yu) + 2 * p2 * xu * yu
+        fx_err, fy_err = xu * radial + tx - xd, yu * radial + ty - yd
+        xu, yu = (xd - tx) / radial, (yd - ty) / radial
+    residual = float(np.hypot(fx_err * intr.fx, fy_err * intr.fy).max())
+    return xu * intr.fx + intr.cx, yu * intr.fy + intr.cy, residual
+
+
+def sample(img: np.ndarray, sx: np.ndarray, sy: np.ndarray, nearest: bool) -> np.ndarray:
+    """`img` at the pixel positions (sx, sy), clamped to the image: bilinear
+    for color, nearest for depth."""
+    H, W = img.shape[:2]
+    sx, sy = np.clip(sx, 0, W - 1), np.clip(sy, 0, H - 1)
+    if nearest:
+        return img[np.rint(sy).astype(np.int64), np.rint(sx).astype(np.int64)]
+    x0, y0 = np.floor(sx).astype(np.int64), np.floor(sy).astype(np.int64)
+    x1, y1 = np.minimum(x0 + 1, W - 1), np.minimum(y0 + 1, H - 1)
+    ax, ay = (sx - x0)[..., None], (sy - y0)[..., None]
+    return ((img[y0, x0] * (1 - ax) + img[y0, x1] * ax) * (1 - ay)
+            + (img[y1, x0] * (1 - ax) + img[y1, x1] * ax) * ay)
+
+
+def fine_texture(color, depth, intr, w2c, cell: float = 0.03):
+    """`color` plus a mosaic of `cell`-metre cubes of random gray on the
+    scene's surfaces: `texture_detail`'s speckle is ~50 px wide at 640x480
+    and 2 m, too smooth for FAST corners (a handful a frame), and a regular
+    pattern would defeat descriptor matching."""
+    import torch
+
+    dev = color.device
+    H, W = depth.shape[:2]
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
+                            torch.arange(W, dtype=torch.float32, device=dev), indexing="ij")
+    rays = torch.stack([(xs - intr.cx) / intr.fx, (ys - intr.cy) / intr.fy, torch.ones_like(xs)], dim=-1)
+    c2w = torch.as_tensor(np.linalg.inv(np.asarray(w2c, np.float64)), dtype=torch.float32, device=dev)
+    p = (rays * depth) @ c2w[:3, :3].T + c2w[:3, 3]
+    q = torch.floor(p / cell + 0.37).to(torch.int64)  # offset: no wall lies on a cell boundary
+    h = (q[..., 0] * 73856093) ^ (q[..., 1] * 19349663) ^ (q[..., 2] * 83492791)
+    value = (h % 1021).to(torch.float32) / 1020.0 - 0.5
+    return torch.clamp(color + 0.5 * value[..., None] * (depth > 0), 0.0, 1.0)
+
+
+def write_tum_fixture(torch, root: str, cfg, n_frames: int, seed: int = 4, device: str = "cuda",
+                      noise: bool = True, scene: str = "room") -> dict:
+    """A TUM RGB-D recording on disk, written by the port's PNG writer: the
+    synthetic `room` scene (`texture_detail` 0.35 and `fine_texture` for
+    FAST corners) seen from an orbit of radius 1 m turning 1 degree a frame
+    (fresh wall in every frame; 1.7 cm a frame, TUM fr1's pace),
+    forward-distorted with the configuration's lens, then (`noise`) the
+    sensor noise model; `rgb.txt`, `depth.txt` (depth_scale units) and
+    `groundtruth.txt` with jittered timestamps, one color image without
+    depth or pose (the association drops it)."""
+    from scipy.spatial.transform import Rotation
+
+    from eggfusion_tpu_torch.data import synthetic as syn
+    from eggfusion_tpu_torch.geometry.camera import CameraIntrinsics
+    from eggfusion_tpu_torch.io.png import write_png
+
+    calib = cfg.Dataset.Calibration
+    intr = CameraIntrinsics.from_calibration(calib)
+    dist = [float(calib.get(k, 0.0)) for k in ("k1", "k2", "p1", "p2", "k3")]
+    sx, sy, residual = inverse_distortion(intr, dist)
+    os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(root, "depth"), exist_ok=True)
+    if scene == "room":
+        poses = syn.make_orbit_trajectory(n_frames, radius=1.0, turns=(n_frames - 1) / 360, seed=seed)
+    else:
+        poses = syn.make_trajectory(n_frames)
+    rng = np.random.default_rng(seed)
+    rgb, dep = ["# color images"], ["# depth maps"]
+    gt = ["# ground truth trajectory", "# timestamp tx ty tz qx qy qz qw"]
+    t0 = time.perf_counter()
+    for i in range(n_frames):
+        color, depth = syn.render_corner_scene(intr, poses[i], detail=0.35, scene=scene, device=device)
+        color = fine_texture(color, depth, intr, poses[i])
+        c = sample(color.cpu().numpy(), sx, sy, nearest=False)
+        d = sample(depth.cpu().numpy()[..., 0], sx, sy, nearest=True)
+        if noise:
+            c, d = syn.apply_sensor_noise(c, d, seed=seed * 1000 + i)
+        ts = 1305031102.0 + 0.04 * i + rng.uniform(-0.004, 0.004)
+        write_png(os.path.join(root, "rgb", f"{ts:.6f}.png"), (np.clip(c, 0, 1) * 255).astype(np.uint8))
+        write_png(os.path.join(root, "depth", f"{ts:.6f}.png"),
+                  np.round(np.clip(d, 0, None) * float(calib.depth_scale)).astype(np.uint16))
+        rgb.append(f"{ts:.6f} rgb/{ts:.6f}.png")
+        dep.append(f"{ts + rng.uniform(0.0, 0.01):.6f} depth/{ts:.6f}.png")
+        c2w = np.linalg.inv(poses[i].astype(np.float64))
+        q, t = Rotation.from_matrix(c2w[:3, :3]).as_quat(), c2w[:3, 3]
+        gt.append(f"{ts + 0.002:.6f} " + " ".join(f"{v:.7f}" for v in (*t, *q)))
+    rgb.append(f"{ts + 0.5:.6f} rgb/unmatched.png")
+    for name, lines in (("rgb", rgb), ("depth", dep), ("groundtruth", gt)):
+        with open(os.path.join(root, f"{name}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return {"frames": n_frames, "images": n_frames + 1, "inverse_residual_px": residual,
+            "write_s": time.perf_counter() - t0}
+
+
+def run_frames(torch, cfg, n_frames: int):
+    """`EGGFusion.reconstruct` over the first `n_frames` of the dataset,
+    decoded before the clock starts. Returns the system, the frames per
+    second over frames 1 to `n_frames` - 1, and the converged flag of each
+    frame the dense solve tracked."""
+    from eggfusion_tpu_torch.core.frame import Frame
+    from eggfusion_tpu_torch.data.datasets import load_dataset
+    from eggfusion_tpu_torch.system import EGGFusion
+
+    ef = EGGFusion(cfg)
+    ds = load_dataset(cfg, ef.device)
+    items = [ds[i] for i in range(n_frames)]
+    mask = torch.as_tensor(items[0][3], dtype=torch.float32, device=ef.device)
+    converged = []
+    track = ef.tracker.tracking
+
+    def tracking(frame, model_map):
+        track(frame, model_map)
+        if hasattr(frame, "tracking_converged"):
+            converged.append(frame.tracking_converged)
+
+    ef.tracker.tracking = tracking
+    t0 = None
+    for i, (ts, color, depth, _mask, pose) in enumerate(items):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        ef.reconstruct(Frame(uid=i, ts=ts, color_u8=color, depth_raw=depth, mask=mask, gt_pose_w2c=pose,
+                             intr=ds.intrinsics, depth_scale=ds.depth_scale, device=ef.device, nlevel=ef.nlevel,
+                             bilateral=ds.bilateral_mode))
+    torch.cuda.synchronize()
+    return ef, (n_frames - 1) / (time.perf_counter() - t0), [bool(c) for c in converged]
+
+
+def check_dense(cfglib, torch, cfg, work: str, n_frames: int = 16) -> dict:
+    """The dense tracker at 640x480: the same configuration on a noise-free
+    recording of the `corner` scene (three walls in view) on the sway
+    trajectory. The main recording cannot show it: the dense solve never
+    converges there, most likely because its orbit sees one wall, along
+    which point-to-plane alignment slides, and its sensor noise keeps the
+    finest level's residual above `residual_thres` 0.001. Returns the
+    frames whose dense solve converged (and so set the pose) and the ATE."""
+    from eggfusion_tpu_torch.utils import eval as evalu
+
+    root = os.path.join(work, "rgbd_corner")
+    write_tum_fixture(torch, root, cfg, n_frames, noise=False, scene="corner")
+    cfg = cfglib.merge(cfg, {"Dataset": {"dataset_path": root, "preload": False}})
+    ef, fps, converged = run_frames(torch, cfg, n_frames)
+    ref, est = ef._traj_np("ref"), ef._traj_np("est")
+    return {"frames": n_frames, "converged": sum(converged), "tracked": len(converged),
+            "sparse_seeds": ef.tracker.sparse_seeds, "recoveries": len(ef.metrics) - n_frames,
+            "ate_cm": evalu.ate_rmse(ref[:, :3, 3], est[:, :3, 3]), "fps": fps}
+
+
+def check_tum(cfglib, torch, n_frames: int = 60, n_compare: int = 20) -> dict:
+    """Phase 7: `configs/tum/fr1_desk.yaml` as it stands (640x480, its lens,
+    `use_sparse`, `max_surfels_num` 3M with the capacity ladder) through
+    `main.run` on a TUM recording written at that size; then the kernels
+    against their plain versions on its final map, the dense tracker on a
+    noise-free recording (`check_dense`), and the steady frame rate over
+    `n_compare` frames with the ladder and with a fixed 3M map, in turns."""
+    from eggfusion_tpu_torch.core import surfels as sf
+    from eggfusion_tpu_torch.main import run
+    from eggfusion_tpu_torch.ops import raster_tile as rt
+    from eggfusion_tpu_torch.utils import eval as evalu
+
+    # the recording (~80 MB) and the run's files stay out of chiprun_out/
+    work = os.path.join(REPO, "build", "tum_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "rgbd_dataset")
+    cfg = cfglib.load_config(TUM_CONFIG, make_workspace=False)
+    cfg.Dataset.dataset_path = root
+    cfg.System.save_dir = os.path.join(work, "run")
+    fixture = write_tum_fixture(torch, root, cfg, n_frames)
+    emit({"phase": "tum_fixture", **fixture})
+    stages = {}
+
+    def on_stage(stage, ef):
+        stages[stage] = dict(rt.LAUNCHES)
+        rt.reset_launch_counts()
+
+    rt.reset_launch_counts()
+    ef = run(cfg, on_stage=on_stage)
+    ds = ef.dataset
+    launches = stages["loop"]
+    # the kernels against their plain versions on this path's inputs: the
+    # final map (its capacity changed on the way) from the last frame's
+    # pose, 5 x 15 tiles
+    sm = ef.mapper.surfels
+    w2c = torch.as_tensor(np.asarray(ds[len(ds) - 1][4], np.float32), device=ef.device)
+    view = map_view(torch, sm, w2c, ds.intrinsics.as_tensor(ef.device), ds.intrinsics.width, ds.intrinsics.height)
+    kernels = check_view(torch, view, timed=False, phase="tum_check", f64_band=True)
+    finite = all(bool(torch.isfinite(getattr(sm, f)[..., sm.active]).all()) for f in sf.FIELDS
+                 if getattr(sm, f).is_floating_point())
+    ref, est = ef._traj_np("ref"), ef._traj_np("est")
+    ate = evalu.ate_rmse(ref[:, :3, 3], est[:, :3, 3])
+    frames = [m for m in ef.metrics if m["frame"] >= 0]
+    caps = [m["capacity"] for m in frames]
+    with open(os.path.join(ef.save_dir, "render_metrics.json")) as f:
+        render = json.load(f)["mean"]
+    with open(os.path.join(ef.save_dir, "recon_metrics.json")) as f:
+        recon = json.load(f)
+    dense = check_dense(cfglib, torch, cfg, work)
+    compare = {}
+    for label, bucketing in (("ladder", True), ("fixed", False)):
+        c = cfglib.merge(cfg, {"Dataset": {"preload": False}, "System": {"capacity_bucketing": bucketing}})
+        run_ef, fps, _ = run_frames(torch, c, n_compare)
+        compare[label] = {"fps": fps, "capacity": run_ef.mapper.surfels.capacity,
+                          "active_surfels": int(run_ef.mapper.surfels.num_active())}
+        del run_ef
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"phase": "tum", "frames": len(frames), "size": [ds.intrinsics.width, ds.intrinsics.height],
+           "distorted": ds.distorted, "mask_valid_share": float(ds.mask.mean()),
+           "max_surfels_num": ef.mapper.max_capacity, "capacities": caps,
+           "capacity_changes": [(m["frame"], m["capacity"]) for a, m in zip(frames, frames[1:])
+                                if m["capacity"] != a["capacity"]],
+           "sparse_seeds": ef.tracker.sparse_seeds, "sparse_seed_share": ef.tracker.sparse_seeds / len(frames),
+           "fps": len(frames) / ef.run_wall_s,
+           "fps_after_frame0": (len(frames) - 1) / max(ef.run_wall_s - ef.run_frame0_s, 1e-9),
+           "frame0_s": ef.run_frame0_s, "prefetch_ms_first": ds.prefetch_ms[0],
+           "prefetch_ms_median": statistics.median(ds.prefetch_ms[1:]), "prefetch_ms_max": max(ds.prefetch_ms[1:]),
+           "ate_cm": ate, "active_surfels": int(ef.mapper.surfels.num_active()),
+           "opt_steps": ef.mapper.opt_steps_total, "recoveries": len(ef.metrics) - len(frames),
+           "keyframes": len(ef.mapper.keyframe_manager), "psnr": render.get("psnr"),
+           "depth_l1": render.get("depth_l1"), "recon_f1": recon.get("recon_f1"),
+           "finish_s": ef.run_finish_s, "eval_s": ef.run_eval_s, "launches": launches, "map_finite": finite,
+           "kernel_check": {k: {"max_rel_err": v["max_rel_err"], "band_held_values": v.get("band_held_values", 0),
+                                "pairs": v["pairs"]} for k, v in kernels.items() if isinstance(v, dict)},
+           "dense": dense, "steady_fps": compare, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(out)
+    if not (ds.distorted and out["mask_valid_share"] < 1.0):
+        fail("tum: the undistortion path is not live")
+    if not out["sparse_seeds"] >= len(frames) / 2:
+        fail(f"tum: sparse seeds on {out['sparse_seeds']} of {len(frames)} frames")
+    if not ate < 3.0:
+        fail(f"tum: ATE {ate} cm >= 3 cm")
+    if not finite:
+        fail("tum: the map holds non-finite values")
+    if not (dense["converged"] >= dense["tracked"] / 2 and dense["ate_cm"] < 1.0):
+        fail(f"tum: the dense solve converged on {dense['converged']} of {dense['tracked']} frames of the corner "
+             f"recording, ATE {dense['ate_cm']} cm")
+    # the finish phase's bounds (`tests/test_system_e2e.py`'s)
+    if not (render["psnr"] > 12.0 and render["depth_l1"] < 0.15 and recon.get("recon_f1", 0.0) > 0.7):
+        fail(f"tum: keyframe PSNR {render['psnr']}, depth-L1 {render['depth_l1']}, recon F1 {recon.get('recon_f1')}")
+    grew = any(b > a for a, b in zip(caps, caps[1:]))
+    if not (out["capacity_changes"] and grew and caps[-1] < ef.mapper.max_capacity):
+        fail(f"tum: the map never grew, or ended at its maximum: {out['capacity_changes']}")
+    for k in ("composite_fwd", "composite_bwd"):
+        if launches[k] <= 0:
+            fail(f"tum: kernel {k} was never launched on this path")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -625,8 +987,10 @@ def main() -> None:
     burst_run, burst_stages, _ = drive(cfglib, torch, n_frames=7, burst=True)
     recovery = check_recovery(cfglib, torch)
     resume = check_resume(cfglib, torch, ckpt_path, saved)
+    tum = check_tum(cfglib, torch)
     by_path = {"main": main_stages["loop"], "finish": main_stages["finish"], "eval": main_stages["eval"],
-               "burst": burst_stages["loop"], "recovery": recovery["launches"], "resume": resume["launches"]}
+               "burst": burst_stages["loop"], "recovery": recovery["launches"], "resume": resume["launches"],
+               "tum": tum["launches"]}
 
     src = "eggfusion_tpu_torch/csrc/"
     rows = [
@@ -648,7 +1012,7 @@ def main() -> None:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"gpu": gpu, "checks": checks, "adversarial": adversarial, "main": main_run,
                    "finish": finish, "burst": burst_run, "recovery": recovery, "resume": resume,
-                   "kernels": kernels},
+                   "tum": tum, "kernels": kernels},
                   f, indent=1)
     emit({"kernels": kernels})
     print(gpu, flush=True)

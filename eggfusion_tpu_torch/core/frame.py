@@ -17,8 +17,10 @@ from eggfusion_tpu_torch.ops.pyramid import build_pyramid
 
 def prepare_frame_inputs(color_u8, depth_raw, mask, depth_scale: float, bilateral: str = "exact"):
     """Normalize color, scale + bilateral-filter depth (13, 0.03, 4.5).
-    Returns (color f32 (H, W, 3), depth f32 (H, W, 1), mask f32 (H, W, 1))."""
-    color = color_u8.to(torch.float32) / 255.0
+    Returns (color f32 (H, W, 3), depth f32 (H, W, 1), mask f32 (H, W, 1)).
+    Color is scaled by the float32 reciprocal of 255, as XLA evaluates the
+    JAX package's division by the constant."""
+    color = color_u8.to(torch.float32) * (1.0 / 255.0)
     depth = depth_raw.to(torch.float32) / depth_scale
     if depth.dim() == 2:
         depth = depth[..., None]
@@ -41,6 +43,7 @@ class Frame:
         self.intr = intr.as_tensor(self.device)
         self.width, self.height = intr.width, intr.height
         self.gt_w2c = np.asarray(gt_pose_w2c, np.float32)
+        self.sparse_tracking = False  # the tracker's seed came from the sparse frontend
         self._w2c = None
         self._gt_w2c_dev = None
         to = lambda x: torch.as_tensor(x, device=self.device)
@@ -56,6 +59,8 @@ class Frame:
             m = to(mask).to(torch.float32)
             self.mask = m if m.dim() == 3 else m[..., None]
         else:
+            if isinstance(depth_raw, np.ndarray) and depth_raw.dtype == np.uint16:
+                depth_raw = depth_raw.astype(np.int32)  # exact; CUDA has few uint16 operations
             self.color, self.depth, self.mask = prepare_frame_inputs(
                 to(color_u8), to(depth_raw), to(mask), float(depth_scale), bilateral)
         self.pyramid = build_pyramid(self.color, self.depth, self.mask, self.intr, nlevel=nlevel,

@@ -6,12 +6,17 @@ Ported: `MapperConfig`, Adam and the losses, `KeyFrame` (device or host
 storage) / `KeyFrameManager`, the keyframe-map NaN check, and in `Mapping`
 the per-frame `map_update`, `opt_step`, spawn sampling, the binning cache,
 `mapping`, the adaptive model cap, map maintenance (prune + compact), the
-amortized and burst optimization schedules, the global keyframe
-optimization of `finish` and the full model render of the evaluations. Not
-ported (the constructor raises where a config asks for them): the capacity
-ladder and its background precompiles (the map here is always
-`Viewer.max_surfels_num` slots), `settled_skip`, `model_view_down` > 1 and
-the multi-device window step.
+capacity ladder (`System.capacity_bucketing`), the amortized and burst
+optimization schedules, the global keyframe optimization of `finish` and
+the full model render of the evaluations. Not ported (the constructor
+raises where a config asks for them): `settled_skip`, `model_view_down` > 1
+and the multi-device window step.
+
+The capacity ladder makes the same decisions as the JAX module's, from the
+same lagged count readbacks. What there exists only to hide XLA compiles
+(background compile campaigns, per-rung program warmup) has no
+counterpart: every rung is ready, as the JAX module reports on the CPU, and
+growing or shrinking the map is a buffer reallocation.
 
 Device scalars the host needs (fusion stats, losses, pose deltas, map
 counts) are copied asynchronously and read `count_lag` frames later, as in
@@ -273,6 +278,21 @@ class KeyFrameManager:
         return len(self.keyframes)
 
 
+def capacity_ladder(max_capacity: int, factor: float = 1.4, coarse_at: int = 524288,
+                    factor_large: float = 2.0) -> list[int]:
+    """The map's capacity rungs: 32768, then each rung times `factor`
+    (`factor_large` from `coarse_at` on) rounded up to a multiple of 8192,
+    capped by a last rung of `max_capacity`."""
+    ladder = []
+    c = 32768
+    while c < max_capacity:
+        ladder.append(c)
+        f = factor if c < coarse_at else factor_large
+        c = -(-int(c * f) // 8192) * 8192
+    ladder.append(max_capacity)
+    return ladder
+
+
 class Mapping:
     """Mapping orchestrator."""
 
@@ -354,7 +374,24 @@ class Mapping:
             "nlevel": int(cfg.Tracking.pyramid_level),
             "bilateral": str(cfg.System.get("bilateral_mode", "exact")),
         }
-        self.surfels = sf.SurfelMap.empty(self.scfg, device=self.device)
+        # capacity ladder: the map starts at a rung and grows (or shrinks)
+        # to the smallest rung that holds the freshest consumed count plus
+        # `_spawn_margin` of spawn headroom; every per-frame cost is
+        # O(capacity)
+        self.max_capacity = self.scfg.capacity
+        self.bucketing = bool(cfg.System.get("capacity_bucketing", True))
+        self._ladder = capacity_ladder(self.max_capacity, float(cfg.System.get("bucket_factor", 1.4)),
+                                       int(cfg.System.get("bucket_coarse_at", 524288)),
+                                       float(cfg.System.get("bucket_factor_large", 2.0)))
+        self._spawn_margin = self.mcfg.spawn_cap // 8 + 2048
+        self._min_capacity = int(cfg.System.get("min_capacity", 0))
+        init_cap = (self._bucket(self.mcfg.spawn_cap_init + self._spawn_margin)
+                    if self.bucketing else self.max_capacity)
+        self.surfels = sf.SurfelMap.empty(self.scfg._replace(capacity=init_cap), device=self.device)
+        self._known_count = 0  # the map's count after frame `_known_time`
+        self._known_time = -1
+        self._count_pending: deque = deque()  # (time, HostReadback of count)
+        self._shrink_cooldown = 0
         self.count_lag = max(1, int(cfg.System.get("count_lag", 2)))
         self._opt_acc = 0.0
         self._opt_cache_map: dict = {}
@@ -513,6 +550,69 @@ class Mapping:
 
     # -------------------------------------------------------------- host --
 
+    def _bucket(self, needed: int) -> int:
+        """The smallest rung >= `needed`, at least `System.min_capacity`,
+        at most the maximum."""
+        needed = min(max(needed, self._min_capacity), self.max_capacity)
+        for c in self._ladder:
+            if c >= needed:
+                return c
+        return self.max_capacity
+
+    def _consume_counts(self) -> None:
+        """Fold in the count readbacks at least `count_lag` frames old."""
+        while self._count_pending and self._count_pending[0][0] <= self.time - self.count_lag:
+            t, ref = self._count_pending.popleft()
+            self._known_count = int(ref.numpy())
+            self._known_time = t
+
+    def _cap_needed(self) -> int:
+        """The freshest consumed count plus the spawn headroom (plus frame
+        0's init burst while no count has been consumed)."""
+        need = self._known_count + self._spawn_margin
+        if self._known_time < 0:
+            need += self.mcfg.spawn_cap_init
+        return need
+
+    def _ensure_capacity(self) -> None:
+        """Grow the map to the rung it could need before this frame's
+        spawns, or shrink it a rung when it sits that far below. As in the
+        JAX module, the capacity state is invalidated whenever the need
+        exceeds the capacity, even at the maximum, where the map stays as
+        it is and spawns beyond it are dropped."""
+        self._consume_counts()
+        need = self._cap_needed()
+        if need > self.surfels.capacity:
+            with torch.no_grad():
+                self.surfels = sf.grow_surfels(self.surfels, self._bucket(need))
+            self._invalidate_capacity_state()
+        else:
+            self._consider_shrink(need)
+
+    def _consider_shrink(self, need: int) -> None:
+        """Shrink to the rung that holds `need` plus one more margin of
+        hysteresis, when the watermark fits it (one host read: a rare
+        event); otherwise wait `prune_freq` frames for a compaction."""
+        rung = self._bucket(need + self._spawn_margin)
+        if rung >= self.surfels.capacity or self.time < self._shrink_cooldown:
+            return
+        wm = int(self.surfels.count)
+        if wm <= rung:
+            with torch.no_grad():
+                self.surfels = sf.shrink_surfels(self.surfels, rung)
+            self._invalidate_capacity_state()
+            self._known_count = wm
+            self._known_time = self.time
+            self._count_pending.clear()
+        else:
+            self._shrink_cooldown = self.time + max(self.mcfg.prune_freq, 1)
+
+    def _invalidate_capacity_state(self) -> None:
+        """A capacity change or a compaction moves slots: the cached
+        binnings and the Adam moments refer to the old ones."""
+        self._opt_cache_map = {}
+        self._opt_moments = None
+
     def mapping(self, frame, frame_map: dict, fail_streak: int = 0) -> dict | None:
         """Per-frame mapping entry. Returns the postprocess model map when
         this frame's map update produced it, None on burst-schedule
@@ -520,6 +620,8 @@ class Mapping:
         first = self.time == 0
         amortized = self.mcfg.opt_schedule == "amortized"
         opt_frame = self.time % self.mcfg.sw_optimize_freq == 0
+        if self.bucketing:
+            self._ensure_capacity()
         full_post = True if amortized else not opt_frame
         leak = fail_streak >= self.gate_leak_streak > 0
         suspect = 0 < fail_streak and not leak
@@ -538,6 +640,8 @@ class Mapping:
             self.fusion_stats[t] = (int(v[0]), int(v[1]))
             if int(v[2]) >= 0:
                 self._observe_occupancy(int(v[2]))
+        if self.bucketing:
+            self._count_pending.append((self.time, HostReadback(self.surfels.count)))
 
         if self._maint_pending is not None:
             self._maintain_finish()
@@ -590,33 +694,48 @@ class Mapping:
         if defer:
             self._maint_pending = (self.time, HostReadback(cnt), HostReadback(act))
             return
-        self._maintain_decide(int(cnt), int(act))
+        self._maintain_decide(int(cnt), int(act), self.time)
 
     def _maintain_finish(self) -> None:
         t, cnt, act = self._maint_pending
         if self.time - t <= self.count_lag:
             return
         self._maint_pending = None
-        self._maintain_decide(int(cnt.numpy()), int(act.numpy()))
+        self._maintain_decide(int(cnt.numpy()), int(act.numpy()), t, immediate=False)
 
-    def forget_pending(self) -> None:
+    def forget_pending(self, count: int) -> None:
         """Drop every lagged readback and every cache that refers to the
         slots of the current map: the map was just replaced (resume,
-        reload)."""
+        reload) by one with `count` slots in use, known as of the frame
+        before `time`."""
         self._stats_pending.clear()
         self._loss_pending.clear()
+        self._count_pending.clear()
         self._maint_pending = None
-        self._opt_cache_map = {}
-        self._opt_moments = None
+        self._invalidate_capacity_state()
+        self._known_count = count
+        self._known_time = self.time - 1
 
-    def _maintain_decide(self, count: int, n_active: int) -> None:
+    def _maintain_decide(self, count: int, n_active: int, known_time: int, immediate: bool = True) -> None:
+        """Compact when fragmentation exceeds `compact_frag` of capacity;
+        the counts date from frame `known_time`. `immediate` (a direct
+        `maintain_map` call) also shrinks the map to the rung that holds
+        the count plus two spawn margins; the frame loop leaves that to
+        `_consider_shrink`."""
         if count - n_active > self.mcfg.compact_frag * self.surfels.capacity:
             with torch.no_grad():
                 self.surfels = sf.compact_surfels(self.surfels)
-            # compaction permutes slots: cached binning / Adam moments refer
-            # to the old slot order
-            self._opt_cache_map = {}
-            self._opt_moments = None
+            count = n_active
+            self._invalidate_capacity_state()
+        self._known_count = count
+        self._known_time = known_time
+        self._count_pending.clear()
+        if self.bucketing and immediate:
+            rung = self._bucket(count + 2 * self._spawn_margin)
+            if rung < self.surfels.capacity and count <= rung:
+                with torch.no_grad():
+                    self.surfels = sf.shrink_surfels(self.surfels, rung)
+                self._invalidate_capacity_state()
 
     def _amortized_opt(self) -> None:
         """local_map_iter * |window| steps per sw_optimize_freq frames, run

@@ -1,5 +1,5 @@
-"""Gaussian-surfel map: a fixed-capacity structure of tensors (port of
-`eggfusion_tpu/core/surfels.py`).
+"""Gaussian-surfel map: a structure of tensors whose capacity changes only
+by `grow_surfels` / `shrink_surfels` (port of `eggfusion_tpu/core/surfels.py`).
 
 The map keeps the JAX package's layout: every per-surfel field is stored
 TRANSPOSED, (k, C), with an active mask and an append watermark `count`.
@@ -206,6 +206,38 @@ def append_surfels(s: SurfelMap, batch: SpawnBatch, time, init_opacity: float) -
     blend(s.active, torch.ones((K,), dtype=torch.bool, device=dev))
     s.count = torch.clamp(s.count + n_valid, max=C).to(torch.int32)
     return s
+
+
+def grow_surfels(s: SurfelMap, new_capacity: int) -> SurfelMap:
+    """A new map of `new_capacity` slots: `s` in the leading slots, the rest
+    the empty map's fills (flat log-scale, rotation w = 1, sigma2 1,
+    inactive). `s` itself when it already has that many."""
+    C = s.capacity
+    if new_capacity <= C:
+        return s
+    pad = new_capacity - C
+
+    def ext(x, fill=0):
+        return torch.cat([x, torch.full(x.shape[:-1] + (pad,), fill, dtype=x.dtype, device=x.device)], dim=-1)
+
+    rotation = ext(s.rotation)
+    rotation[0, C:] = 1.0
+    return SurfelMap(
+        xyz=ext(s.xyz), features_dc=ext(s.features_dc), features_rest=ext(s.features_rest),
+        scaling=ext(s.scaling, FLAT_LOG_SCALE), rotation=rotation, opacity=ext(s.opacity),
+        eta=ext(s.eta), sigma2=ext(s.sigma2, 1), observe_count=ext(s.observe_count), tic=ext(s.tic),
+        error_count=ext(s.error_count), stable=ext(s.stable, False), active=ext(s.active, False),
+        count=s.count)
+
+
+def shrink_surfels(s: SurfelMap, new_capacity: int) -> SurfelMap:
+    """The leading `new_capacity` slots of `s` (fresh tensors). The caller
+    guarantees that the watermark `count` fits; `s` itself when it has no
+    more slots than that."""
+    if new_capacity >= s.capacity:
+        return s
+    out = {f: getattr(s, f)[..., :new_capacity].clone() for f in FIELDS if f != "count"}
+    return SurfelMap(**out, count=s.count)
 
 
 def prune_surfels(s: SurfelMap, delete_mask: torch.Tensor) -> SurfelMap:

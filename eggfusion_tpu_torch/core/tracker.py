@@ -7,7 +7,9 @@ committed only if an iteration converged, otherwise the pose falls back to
 the seed delta. The per-level iterations are a Python loop of a fixed count
 (the JAX `while_loop` with `early_exit` off) and nothing in it reads the
 device: the converged flag stays a device tensor, and the host reads it
-`readback_lag` frames late through an async copy.
+`readback_lag` frames late through an async copy. With `Tracking.use_sparse`
+the seed comes from the sparse frontend (`core.sparse_init`) where it
+solves, which reads the frame's image back to the host every frame.
 """
 from __future__ import annotations
 
@@ -94,9 +96,10 @@ def dense_track_pose(pyr_model, pyr_frame, seed_delta, prev_transform, cfg: Trac
 
 class Tracker:
     """Host-side tracking orchestrator: frame 0 and `only_mapping` take the
-    GT pose; the dense result is committed only on convergence, seeded by a
-    damped constant-velocity motion model; converged flags are folded into a
-    failure streak `readback_lag` frames late."""
+    GT pose; the dense result is committed only on convergence, seeded by
+    the sparse frontend (`Tracking.use_sparse`) or a damped constant-velocity
+    motion model; converged flags are folded into a failure streak
+    `readback_lag` frames late."""
 
     def __init__(self, cfg, device):
         t = cfg.Tracking
@@ -105,8 +108,6 @@ class Tracker:
             raise NotImplementedError("the port has no multi-device tracking (System.mesh_devices)")
         if int(t.get("model_view_down", 1)) != 1:
             raise NotImplementedError("the port renders the model view at full size (model_view_down 1)")
-        if bool(t.get("use_sparse", False)):
-            raise NotImplementedError("the port has no sparse seed (Tracking.use_sparse)")
         if bool(t.get("early_exit", False)):
             raise NotImplementedError("the port runs every GN iteration (Tracking.early_exit off)")
         self.config = TrackerConfig(
@@ -135,19 +136,32 @@ class Tracker:
         self._conv_pending: deque = deque()  # (HostReadback of converged, pose)
         self.last_good_w2c = None
         self.seed_override = None  # one-shot delta seed (the recovery rotation sweep)
+        self.sparse_seeds = 0  # frames whose delta seed came from the sparse frontend
         self.initialized = False
         self._prev_w2c = None
         self._prev_prev_w2c = None
+        self._sparse = None
+        if bool(t.get("use_sparse", False)):
+            from eggfusion_tpu_torch.core.sparse_init import SparseInitializer
 
-    def _seed_delta(self):
-        """Initial delta: a pending one-shot override first, then identity
-        mid-failure-streak, else constant velocity."""
+            self._sparse = SparseInitializer(cfg)
+
+    def _seed_delta(self, frame, prev_transform):
+        """Initial delta: a pending one-shot override first; without a
+        sparse frontend, identity mid-failure-streak; then the sparse
+        frontend's estimate, else constant velocity."""
         if self.seed_override is not None:
             seed, self.seed_override = self.seed_override, None
             return seed.to(torch.float32)
         eye = torch.eye(4, dtype=torch.float32, device=self.device)
-        if self._fail_streak > 0:
+        if self._fail_streak > 0 and self._sparse is None:
             return eye
+        if self._sparse is not None:
+            seed = self._sparse.track(frame)
+            if seed is not None:
+                frame.sparse_tracking = True
+                self.sparse_seeds += 1
+                return torch.as_tensor(seed, device=self.device) @ lie.invert_se3(prev_transform)
         if self.use_motion_model and self._prev_prev_w2c is not None:
             return _motion_delta(self._prev_w2c, self._prev_prev_w2c, self.motion_damping)
         return eye
@@ -179,10 +193,12 @@ class Tracker:
         if self.only_mapping or not self.initialized:
             self.initialized = True
             frame.update_transform_gt()
+            if self._sparse is not None:
+                self._sparse.track(frame)  # keep the frontend's previous frame current
             self._push_pose(frame.w2c_matrix())
             return
         prev_transform = model_map["transform"]
-        seed_delta = self._seed_delta()
+        seed_delta = self._seed_delta(frame, prev_transform)
         curr, converged, rms, n_icp = dense_track_pose(
             model_map["pyramid"], frame.pyramid, seed_delta, prev_transform,
             self.config)

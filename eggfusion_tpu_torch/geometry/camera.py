@@ -37,6 +37,12 @@ class CameraIntrinsics(NamedTuple):
     def fovy(self) -> float:
         return focal2fov(self.fy, self.height)
 
+    @classmethod
+    def from_calibration(cls, calib) -> "CameraIntrinsics":
+        """The intrinsics of a config's `Dataset.Calibration` section."""
+        return cls(fx=float(calib.fx), fy=float(calib.fy), cx=float(calib.cx), cy=float(calib.cy),
+                   width=int(calib.width), height=int(calib.height))
+
     def scaled(self, factor: float) -> "CameraIntrinsics":
         """Intrinsics of a pyramid level downsampled by `factor` (e.g. 2**l)."""
         return CameraIntrinsics(

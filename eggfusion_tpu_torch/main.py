@@ -2,7 +2,7 @@
 
 Usage (on a CUDA GPU; `--device cpu` runs on the CPU):
     python -m eggfusion_tpu_torch.main --synthetic --frames 30 --verbose
-    python -m eggfusion_tpu_torch.main --config my_run.yaml
+    python -m eggfusion_tpu_torch.main --config configs/tum/fr1_desk.yaml
     python -m eggfusion_tpu_torch.main --synthetic --resume results/synthetic_run_torch/checkpoint.npz
 
 A run reconstructs the sequence, then calls `finish()` (the global keyframe
@@ -25,6 +25,13 @@ def build_frame(dataset, fid: int, preload: bool, device, nlevel: int = 3):
     nlevel = getattr(dataset, "frame_nlevel", nlevel)
     bilateral = getattr(dataset, "bilateral_mode", "exact")
     ts, color, depth, mask, gt_pose = dataset.get_buffer_frame() if preload else dataset[fid]
+    if isinstance(mask, np.ndarray):
+        # the validity mask is the dataset's (its undistortion map): upload
+        # it once per dataset and device
+        cached = getattr(dataset, "_mask_dev", None)
+        if cached is None or cached[0] != str(device):
+            cached = dataset._mask_dev = (str(device), torch.as_tensor(mask, dtype=torch.float32, device=device))
+        mask = cached[1]
     device_feed = isinstance(color, torch.Tensor)  # float color / metric depth
     return Frame(uid=fid, ts=ts, color_u8=color, depth_raw=depth, mask=mask,
                  gt_pose_w2c=np.asarray(gt_pose), intr=dataset.intrinsics,
@@ -36,8 +43,9 @@ def run(cfg, max_frames: int | None = None, verbose: bool = False, resume: str |
         device=None, random_source=None, on_stage=None):
     """Reconstruct the configured sequence (from the checkpoint `resume`,
     if given), then `finish()` and the enabled evaluations; returns the
-    `EGGFusion`. Seconds on the system: `run_wall_s` for the frame loop,
-    `run_frame0_s` for its first frame, `run_finish_s` and `run_eval_s`.
+    `EGGFusion`, with the dataset it read as `dataset`. Seconds on the
+    system: `run_wall_s` for the frame loop, `run_frame0_s` for its first
+    frame, `run_finish_s` and `run_eval_s`.
     `on_stage(name, ef)`, if given, is called after the frame loop ("loop"),
     `finish()` ("finish") and the evaluations ("eval"), each after the
     device has drained."""
@@ -45,7 +53,7 @@ def run(cfg, max_frames: int | None = None, verbose: bool = False, resume: str |
     from eggfusion_tpu_torch.system import EGGFusion
 
     ef = EGGFusion(cfg, device=device, random_source=random_source)
-    dataset = load_dataset(cfg, ef.device)
+    dataset = ef.dataset = load_dataset(cfg, ef.device)
     start = 0
     if resume:
         ef.resume(resume)
@@ -94,7 +102,7 @@ def run(cfg, max_frames: int | None = None, verbose: bool = False, resume: str |
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="EggFusion RGB-D dense SLAM (PyTorch / CUDA)")
-    parser.add_argument("--config", type=str, default=None, help="scene yaml (synthetic datasets only)")
+    parser.add_argument("--config", type=str, default=None, help="scene yaml (configs/)")
     parser.add_argument("--synthetic", action="store_true", help="run the built-in synthetic sequence")
     parser.add_argument("--frames", type=int, default=None, help="limit number of frames")
     parser.add_argument("--resume", type=str, default=None, help="resume from a checkpoint.npz")

@@ -1,8 +1,9 @@
 """Host C++ components of the repository, loaded through ctypes (port of
 `eggfusion_tpu/native/__init__.py`).
 
-`load(name)` compiles the repository's `native/<name>.cpp` with g++ at first
-use into `build/eggfusion_tpu_torch/native/` and loads it. The library is
+`load(name)` compiles `<name>.cpp` — the port's own, beside this file, or
+else the repository's `native/<name>.cpp` — with g++ at first use into
+`build/eggfusion_tpu_torch/native/` and loads it. The library is
 built for the host CPU (`-march=native`), so its file name carries a hash of
 the source, the flags and the CPU features g++ resolves for this host: a
 library built on one machine is never loaded on another. An exclusive file
@@ -19,7 +20,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-SRC_DIR = Path(__file__).resolve().parents[2] / "native"
+SRC_DIRS = (Path(__file__).resolve().parent, Path(__file__).resolve().parents[2] / "native")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "eggfusion_tpu_torch" / "native"
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
@@ -40,10 +41,15 @@ def _host_target() -> bytes:
         raise NativeCompileError(f"g++ is needed to build the native libraries: {e}") from e
 
 
+def source(name: str) -> Path:
+    for d in SRC_DIRS:
+        if (d / f"{name}.cpp").exists():
+            return d / f"{name}.cpp"
+    raise NativeCompileError(f"missing native source {name}.cpp in {[str(d) for d in SRC_DIRS]}")
+
+
 def target(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cpp"
-    if not src.exists():
-        raise NativeCompileError(f"missing native source {src}")
+    src = source(name)
     key = src.read_bytes() + " ".join(CXX_FLAGS).encode() + _host_target()
     return BUILD_DIR / f"{name}-{hashlib.sha256(key).hexdigest()[:16]}.so"
 
@@ -60,7 +66,7 @@ def load(name: str) -> ctypes.CDLL:
             fcntl.flock(lock, fcntl.LOCK_EX)
             if not out.exists():
                 tmp = out.with_suffix(f".{os.getpid()}.tmp")
-                cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cpp"), "-pthread"]
+                cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(source(name)), "-pthread"]
                 proc = subprocess.run(cmd, capture_output=True, text=True)
                 if proc.returncode != 0:
                     raise NativeCompileError(f"g++ failed for {name}:\n{proc.stderr}")

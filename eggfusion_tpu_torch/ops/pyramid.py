@@ -15,6 +15,7 @@ import torch
 from eggfusion_tpu_torch.ops import image as imops
 
 RGB_COEFF = (0.299, 0.587, 0.114)  # applied reversed, as in the reference
+_RGB_COEFF_F32 = tuple(float(torch.tensor(v, dtype=torch.float32)) for v in RGB_COEFF)
 
 
 class PyramidLevel(NamedTuple):
@@ -31,9 +32,15 @@ Pyramid = Tuple[PyramidLevel, ...]
 
 
 def _gray(color: torch.Tensor) -> torch.Tensor:
-    return (
-        color[..., 0] * RGB_COEFF[2] + color[..., 1] * RGB_COEFF[1] + color[..., 2] * RGB_COEFF[0]
-    )[..., None]
+    """c0 k2 + c1 k1 + c2 k0 as XLA evaluates the JAX expression on the CPU:
+    fma(c2, k0, fma(c0, k2, c1 k1)). The fused steps run in float64 and
+    round to float32 where an FMA rounds (a float32 product is exact in
+    float64), so the intensity — and the uint8 image the sparse frontend
+    reads from it — is the JAX package's bit for bit."""
+    f64 = torch.float64
+    k = _RGB_COEFF_F32
+    inner = (color[..., 0].to(f64) * k[2] + (color[..., 1] * RGB_COEFF[1]).to(f64)).to(torch.float32)
+    return (color[..., 2].to(f64) * k[0] + inner.to(f64)).to(torch.float32)[..., None]
 
 
 def _grad3(gray: torch.Tensor) -> torch.Tensor:

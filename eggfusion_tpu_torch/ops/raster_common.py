@@ -57,7 +57,13 @@ def project_surfels(params: dict, w2c: torch.Tensor, intr: torch.Tensor, width: 
     tu = R @ (Rs[:, 0] * s[0])
     tv = R @ (Rs[:, 1] * s[1])
 
-    inv_z = 1.0 / z_safe
+    # A surfel at or behind the near plane is never rendered (`valid` below),
+    # but within ~1e-4 m of the camera plane its covariance overflows
+    # float32, and the zero gradient it receives times the NaN local
+    # derivatives would be NaN (the JAX module's gradient is): its covariance
+    # is taken at depth 1 instead.
+    z_cov = torch.where(z <= NEAR_Z, torch.ones_like(z), z_safe)
+    inv_z = 1.0 / z_cov
     inv_z2 = inv_z * inv_z
 
     def proj_axis(a):

@@ -572,15 +572,21 @@ def render_tile(params: dict, w2c: torch.Tensor, intr: torch.Tensor, width: int,
     proj = rc.project_surfels(params, w2c, intr, width, height, sh_degree, need_color=not geom_only)
 
     max_run = None
+    n = proj.mean2d.shape[-1]
     if binning is not None:
         entry_sid, counts, back_map = binning
+        # a binning indexes the slots of the map it was computed on: one
+        # kept across a change of capacity would gather the wrong surfels
+        slots = n if back_map is None else back_map.shape[0]
+        if (slots, counts.shape[0]) != (n, n_tiles):
+            raise ValueError(f"stale binning: computed for {slots} slots over {counts.shape[0]} tiles, "
+                             f"rendering {n} slots over {n_tiles} tiles")
     else:
         entry_sid, counts, back_map, max_run = _bin_entries(
             proj.depth.detach(), proj.mean2d.detach(), proj.radius.detach(), proj.valid,
             n_tiles, tx_tiles, ty_tiles, cap, need_back=need_grad and not geom_only,
         )
 
-    n = proj.mean2d.shape[-1]
     attrs = torch.cat(
         [proj.mean2d, proj.conic, proj.opacity[None], proj.color, proj.normal_cam, proj.p_cam,
          torch.ones((1, n), dtype=torch.float32, device=proj.mean2d.device)],

@@ -10,9 +10,9 @@ global keyframe optimization and writes `final_surfels.ply` and
 `checkpoint.npz`; `resume` continues a run from such a checkpoint (either
 package's) and `reload` loads a PLY map. The evaluations write the TUM
 trajectories and the render (keyframe and held-out views) and
-reconstruction metrics under `save_dir`. Not ported: the render evaluation
-of a dataset's test split (`evaluate_render_dataset`), which waits for the
-real datasets.
+reconstruction metrics under `save_dir`; `evaluate_render_dataset` scores
+renders at the ground-truth poses of another split of a dataset (the
+ScanNet++ test split).
 """
 from __future__ import annotations
 
@@ -35,12 +35,6 @@ from eggfusion_tpu_torch.ops import image as imops
 from eggfusion_tpu_torch.ops.pyramid import build_pyramid
 from eggfusion_tpu_torch.utils import eval as evalu
 from eggfusion_tpu_torch.utils.device import resolve_device
-
-
-def _cal_intrinsics(cfg) -> CameraIntrinsics:
-    cal = cfg.Dataset.Calibration
-    return CameraIntrinsics(fx=float(cal.fx), fy=float(cal.fy), cx=float(cal.cx), cy=float(cal.cy),
-                            width=int(cal.width), height=int(cal.height))
 
 
 def _host(x) -> np.ndarray:
@@ -154,7 +148,7 @@ class EGGFusion:
     def _model_map_at(self, w2c) -> dict:
         """A tracking model map (render + pyramid) at an arbitrary pose: the
         re-anchor of recovery and resume."""
-        intr = _cal_intrinsics(self.cfg)
+        intr = CameraIntrinsics.from_calibration(self.cfg.Dataset.Calibration)
         ia = intr.as_tensor(self.device)
         out = self.mapper.render_model(self.mapper.surfels, w2c, ia, intr.width, intr.height)
         opa = out["opacity"] > self.reco_opacity_thres
@@ -271,6 +265,7 @@ class EGGFusion:
             "map_ms": (t2 - t1) * 1e3,
             "post_ms": (t3 - t2) * 1e3,
             "surfels": self.mapper.surfels.num_active(),  # device scalar, read lazily
+            "capacity": self.mapper.surfels.capacity,
             "opt_steps": self.mapper.opt_steps_total,
         }
         fs = self.mapper.fusion_stats
@@ -350,33 +345,17 @@ class EGGFusion:
                        row(s.rotation), row(s.opacity))
         print(f"Saved surfels to {path}")
 
-    def _fit_capacity(self, s: sf.SurfelMap) -> sf.SurfelMap:
-        """The map `s` in the configured `Viewer.max_surfels_num` slots (the
-        port's map does not grow). Slots at or above the watermark hold no
-        surfel, so a map of another capacity fits when its watermark does."""
-        cap = self.mapper.scfg.capacity
-        if s.capacity == cap:
-            return s
-        n = int(s.count)
-        if n > cap:
-            raise ValueError(f"the map holds {n} slots in use, more than Viewer.max_surfels_num = {cap}")
-        out = sf.SurfelMap.empty(self.mapper.scfg, device=self.device)
-        k = min(cap, s.capacity)
-        for f in sf.FIELDS[:-1]:
-            getattr(out, f)[..., :k] = getattr(s, f)[..., :k]
-        out.count = s.count.clone()
-        return out
-
     def resume(self, path: str) -> None:
         """Continue a run from a `checkpoint.npz` of either package: the whole
-        surfel map (fusion state included), the trajectory and the frame
-        clock; the model view is rendered at the last estimated pose and the
-        tracker takes that pose as its history."""
+        surfel map (fusion state included) at the checkpoint's capacity, the
+        trajectory and the frame clock; the model view is rendered at the
+        last estimated pose and the tracker takes that pose as its
+        history."""
         s, extra = ckpt.load_checkpoint(path, self.device)
-        self.mapper.surfels = self._fit_capacity(s)
-        self.mapper.forget_pending()
+        self.mapper.surfels = s
         if "time" in extra:
             self.mapper.time = int(extra["time"])
+        self.mapper.forget_pending(int(s.count))
         if "ts" in extra:
             self.traj = {
                 "ts": list(np.asarray(extra["ts"])),
@@ -393,22 +372,24 @@ class EGGFusion:
 
     def reload(self, path: str) -> None:
         """Load a PLY map into the leading slots (its 3DGS fields; the
-        fusion state starts fresh). Raises when the PLY holds more surfels
-        than `Viewer.max_surfels_num`."""
+        fusion state starts fresh). A map too large for the current
+        capacity grows to the ladder's rung for it; above
+        `Viewer.max_surfels_num` the first that many surfels are kept."""
         data = plyio.load_ply(path)
         s = self.mapper.surfels
         n = len(data["xyz"])
         if n > s.capacity:
-            raise ValueError(f"{path} holds {n} surfels, more than Viewer.max_surfels_num = {s.capacity}")
+            s = self.mapper.surfels = sf.grow_surfels(s, self.mapper._bucket(n))
+        n = min(n, s.capacity)
         fields = ["xyz", "features_dc", "scaling", "rotation", "opacity"]
         if data["features_rest"].shape[1] == s.features_rest.shape[1]:
             fields.append("features_rest")
         for f in fields:
             # PLY rows (n, k...) -> leading slots of the (k..., C) field
-            getattr(s, f)[..., :n] = torch.as_tensor(np.ascontiguousarray(data[f].T), device=self.device)
+            getattr(s, f)[..., :n] = torch.as_tensor(np.ascontiguousarray(data[f][:n].T), device=self.device)
         s.active[:n] = True
         s.count = torch.tensor(n, dtype=torch.int32, device=self.device)
-        self.mapper.forget_pending()
+        self.mapper.forget_pending(n)
         print(f"Reloaded {n} surfels from {path}")
 
     # ---- evaluation ---------------------------------------------------------
@@ -499,7 +480,7 @@ class EGGFusion:
         """PSNR and depth-L1 of renders at the stored non-keyframe poses
         (views the optimizer never fit), computed on the device."""
         kf_uids = set(self.mapper.keyframe_manager.keyframes.keys())
-        intr = _cal_intrinsics(self.cfg)
+        intr = CameraIntrinsics.from_calibration(self.cfg.Dataset.Calibration)
         ia = intr.as_tensor(self.device)
         rows = []
         for uid, w2c, color, depth in self._heldout:
@@ -516,6 +497,42 @@ class EGGFusion:
                      "depth_l1": float(np.mean([r["depth_l1"] for r in rows]))},
             "n_frames": len(rows),
         }
+
+    def evaluate_render_dataset(self, dataset, train_pivot: np.ndarray | None = None) -> dict:
+        """Render metrics at every ground-truth pose of a loaded split
+        (`load_dataset(cfg, device, test=True)`), written to
+        `render_metrics_testsplit.json`. `train_pivot` is the pivot of the
+        split the map was built from: each split re-bases its poses on its
+        own frame 0, so w2c_run = w2c_split @ pivot_split @ inv(train_pivot)."""
+        intr = CameraIntrinsics.from_calibration(self.cfg.Dataset.Calibration)
+        ia = intr.as_tensor(self.device)
+        adj = np.eye(4)
+        if train_pivot is not None and getattr(dataset, "pivot", None) is not None:
+            adj = np.asarray(dataset.pivot) @ np.linalg.inv(np.asarray(train_pivot))
+        depth_scale = float(self.cfg.Dataset.Calibration.depth_scale)
+        rows = []
+        for i in range(len(dataset)):
+            _ts, color, depth, _mask, w2c = dataset[i]
+            w2c = torch.as_tensor(np.asarray(w2c) @ adj, dtype=torch.float32, device=self.device)
+            out = self.mapper.render_model(self.mapper.surfels, w2c, ia, intr.width, intr.height)
+            r = evalu.eval_render(color.astype(np.float32) / 255.0,
+                                  (depth.astype(np.float32) / depth_scale)[..., None],
+                                  _host(out["color"]), _host(out["depth"]))
+            r["frame"] = i
+            rows.append(r)
+        if not rows:
+            return {}
+        vals = lambda k: [r[k] for r in rows if isinstance(r.get(k), (int, float)) and np.isfinite(r[k])]
+        rep = {
+            "per_frame": [{k: v for k, v in r.items() if not isinstance(v, float) or np.isfinite(v)}
+                          for r in rows],
+            "mean": {k: float(np.mean(vals(k))) for k in ("psnr", "ssim", "depth_l1") if vals(k)},
+            "n_frames": len(rows),
+        }
+        os.makedirs(self.save_dir, exist_ok=True)
+        with open(os.path.join(self.save_dir, "render_metrics_testsplit.json"), "w") as f:
+            json.dump(rep, f, indent=2)
+        return rep
 
     def evaluate_render(self) -> dict:
         """Render metrics over the keyframes (host SSIM and MS-SSIM, each

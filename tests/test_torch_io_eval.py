@@ -136,24 +136,21 @@ def test_checkpoint_torch_to_jax(systems):
 
 
 def test_resume_other_capacity(systems, tmp_path):
-    """A checkpoint of another capacity (a rung of the JAX capacity ladder)
-    resumes into the port's fixed map when its watermark fits, and raises
-    when it does not."""
+    """A checkpoint of another capacity than the configured maximum (a rung
+    of the capacity ladder) resumes at its own capacity, as in the JAX
+    package, above the maximum too; its watermark is the consumed count."""
     m, ef_j, _, tmp = systems
     path = str(tmp / "j_cap.npz")
     j_ckpt.save_checkpoint(path, ef_j.mapper.surfels, extra=EXTRA)
     cfg = _cfg(tcfg, tmp_path)
-    cfg.Viewer.max_surfels_num = 2 * CAP
-    ef = TEGGFusion(cfg, device="cpu")
-    ef.resume(path)
-    s = surfel_map_to_numpy(ef.mapper.surfels)
-    assert s["active"].shape == (2 * CAP,) and int(s["count"]) == int(m["count"]) and ef.mapper.time == 3
-    for f in tsf.FIELDS[:-1]:
-        np.testing.assert_array_equal(s[f][..., :CAP], m[f], err_msg=f)
-    assert not s["active"][CAP:].any()
-    cfg.Viewer.max_surfels_num = int(m["count"]) - 1
-    with pytest.raises(ValueError, match="Viewer.max_surfels_num"):
-        TEGGFusion(cfg, device="cpu").resume(path)
+    for max_surfels in (2 * CAP, int(m["count"]) - 1):
+        cfg.Viewer.max_surfels_num = max_surfels
+        ef = TEGGFusion(cfg, device="cpu")
+        ef.resume(path)
+        s = surfel_map_to_numpy(ef.mapper.surfels)
+        assert s["active"].shape == (CAP,) and int(s["count"]) == int(m["count"]) and ef.mapper.time == 3
+        assert (ef.mapper._known_count, ef.mapper._known_time) == (int(m["count"]), 2)
+        _assert_same_fields(s, m)
 
 
 # ---- evaluation functions ----------------------------------------------------

@@ -152,7 +152,7 @@ def test_rotation_hypothesis_seed(tmp_path):
                                atol=1e-4)
     # the override is one-shot: the next seed consumes it
     override = ef_t.tracker.seed_override
-    assert torch.equal(ef_t.tracker._seed_delta(), override) and ef_t.tracker.seed_override is None
+    assert torch.equal(ef_t.tracker._seed_delta(None, None), override) and ef_t.tracker.seed_override is None
 
 
 RW, RH, DETAIL = 160, 120, 0.25

@@ -120,6 +120,33 @@ def test_project_surfels(scene):
             np.testing.assert_allclose(_np(getattr(b, f)), _np(getattr(a, f)), rtol=1e-5, atol=1e-5, err_msg=f)
 
 
+def test_projection_grad_at_camera_plane(scene):
+    """A surfel 2e-6 m off the camera plane, 4 m to the side: its
+    covariance overflows float32 in the JAX module, whose gradient is then
+    NaN (a zero gradient times a NaN local derivative). The port's values
+    agree wherever a render reads them (valid surfels, and the radius,
+    zero elsewhere) and its gradient stays finite."""
+    pj, pt = scene
+    xyz = np.asarray(pj["xyz"]).copy()
+    xyz[:, 0] = [4.2, -1.0, 2e-6]
+    pj = {**pj, "xyz": jnp.asarray(xyz)}
+    a = jrc.project_surfels(pj, jnp.eye(4), jnp.asarray(INTR), W, H, sh_degree=0)
+    params = {k: (v.detach().clone().requires_grad_(v.is_floating_point()) if torch.is_tensor(v) else v)
+              for k, v in pt.items()}
+    params["xyz"] = torch.from_numpy(xyz).requires_grad_(True)
+    b = trc.project_surfels(params, torch.eye(4), torch.from_numpy(INTR), W, H, sh_degree=0)
+    assert not np.isfinite(_np(a.conic)[:, 0]).all()
+    np.testing.assert_array_equal(_np(b.valid), _np(a.valid))
+    valid = _np(a.valid)
+    for f in ("mean2d", "radius"):  # `test_project_surfels`' tolerance
+        np.testing.assert_allclose(_np(getattr(b, f)), _np(getattr(a, f)), rtol=1e-5, atol=1e-5, err_msg=f)
+    np.testing.assert_allclose(_np(b.conic)[:, valid], _np(a.conic)[:, valid], rtol=1e-5, atol=1e-5)
+    assert torch.isfinite(b.conic).all()
+    loss = (b.conic * torch.where(b.valid, 1.0, 0.0)).sum() + b.mean2d[:, b.valid].sum()
+    grads = torch.autograd.grad(loss, [params["xyz"], params["scales"], params["rotations"]])
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
 def test_render_xla_outputs_and_grads(scene):
     pj, pt = scene
     oj, gj = _jax_value_and_grads(pj, lambda p: j_render_xla(p, jnp.eye(4), jnp.asarray(INTR), W, H, sh_degree=0,

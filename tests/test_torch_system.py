@@ -241,8 +241,9 @@ class TestFinishParity:
         assert t_eval.ate_rmse(ref[:, :3, 3], est[:, :3, 3]) < 1.0
 
     def test_reload_ply(self, runs, tmp_path):
-        """The port reloads its PLY into a fresh system, and refuses one
-        larger than its map."""
+        """The port reloads its PLY into a fresh system; above
+        `Viewer.max_surfels_num` it keeps that many, the first, as the JAX
+        package does."""
         _, ef_t, _ = runs
         path = os.path.join(ef_t.save_dir, "final_surfels.ply")
         ef = TEGGFusion(_cfg(tcfg, tmp_path), device="cpu")
@@ -254,8 +255,10 @@ class TestFinishParity:
             assert torch.equal(getattr(ef.mapper.surfels, f)[..., :n], getattr(ef_t.mapper.surfels, f)[..., act])
         cfg = _cfg(tcfg, tmp_path)
         cfg.Viewer.max_surfels_num = n - 1
-        with pytest.raises(ValueError, match="Viewer.max_surfels_num"):
-            TEGGFusion(cfg, device="cpu").reload(path)
+        ef = TEGGFusion(cfg, device="cpu")
+        ef.reload(path)
+        assert ef.mapper.surfels.capacity == int(ef.mapper.surfels.count) == n - 1
+        assert torch.equal(ef.mapper.surfels.xyz, ef_t.mapper.surfels.xyz[..., act][..., :n - 1])
 
 
 def test_tile_backend_alone(tmp_path):
