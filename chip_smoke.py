@@ -74,7 +74,35 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               3 cm, the map is finite, keyframe PSNR > 12 dB, depth-L1 <
               0.15 m and recon F1 > 0.7, the map grew and ended below 3M,
               the forward and backward kernels ran, and the dense solve
-              converged on half the corner frames with ATE < 1 cm.
+              converged on half the corner frames with ATE < 1 cm;
+  8. variants — the JAX package's run modes, 24 frames each of the slice
+              configuration: the model view at 1/2 with solver stride 1
+              (`Tracking.model_view_down`), at the model-render cap 2048 and
+              at 4096 (the cap the 1/2 view needs), the settled-frame render skip
+              (`Mapping.settled_skip`; wider tolerances, said so in the
+              line, if the defaults never fire) and the GN early exit
+              (`Tracking.early_exit`); prints each run's
+              frames per second beside the main phase's, ATE, the model
+              pyramid's base, the skipped frames and the GN iterations run;
+              holds every kernel to its plain version on the 1/2 view of the
+              cap-4096 run's map ("variants_check"); fails unless ATE < 1 cm
+              (< 3 cm with the early exit), the cap-4096 map stays under
+              200k surfels, a render was skipped and both kernels ran;
+  9. mesh   — the window-batched, keyframe-sharded optimization with
+              pixel-sharded tracking (`System.mesh_devices`), 24 frames: on
+              one GPU, then with 2 shards both on cuda:0 (trajectory within
+              5e-4 of the first), 7 frames of the burst schedule with the
+              1/2 view under a mesh (the geometry-only kernel must run),
+              then, with 2 or more GPUs, on min(4, count)
+              GPUs (the same agreement, both kernels launched on every GPU,
+              the backward held to its plain version on the last one; with
+              one GPU the line says so); fails unless ATE < 1 cm and batched
+              steps ran. `python3 chip_smoke.py --phase mesh` runs the build
+              and the multi-GPU part alone.
+After phase 3 ("frustum"), one forward render of the main path's final map
+through the frustum compaction (`raster_tile.frustum_compact`) against the
+uncompacted render of the surfels it keeps and against the full render,
+each within the forward tolerance, both timed.
 Then the kernels line, the card's `nvidia-smi` name and power limit, and
 the last line {"ok": true, "device": {...}}. Any failure exits non-zero
 before the last line. Needs no network; JAX is not imported.
@@ -304,10 +332,10 @@ def bwd_misses(d_k, d_p, d_64) -> tuple[int, int, float, float]:
     return int((off & ~within)[..., :15].sum()), int((off & within)[..., :15].sum()), rel(d_k), rel(d_p)
 
 
-def check_view(torch, view: dict, timed: bool, phase: str, f64_band: bool = False) -> dict:
+def check_view(torch, view: dict, timed: bool, phase: str, f64_band: bool = False, cap: int = 2048) -> dict:
     """Each kernel against its plain version on the binned map of `view`,
     at the shapes a frame gives it: the forward, full and geometry-only, at
-    CAP 2048 over all tiles (the model render), the full forward and the
+    CAP `cap` over all tiles (the model render), the full forward and the
     backward at CAP 1024 over the opt step's tile subset. Each is held to
     its tolerance and bit for bit to its build without the cull; with
     `f64_band`, a value off its float32 plain version by more than the
@@ -352,9 +380,8 @@ def check_view(torch, view: dict, timed: bool, phase: str, f64_band: bool = Fals
                      no_cull_stream_ms=stream_ms(lambda: fwd_nc(entries, counts, intr, tx, cap, geom=geom)))
         return r
 
-    # ---- forward, full and geometry-only, CAP 2048 over all tiles (the model
-    # render), and the full forward at the opt step's shape too ----
-    cap = 2048
+    # ---- forward, full and geometry-only, CAP `cap` over all tiles (the
+    # model render), and the full forward at the opt step's shape too ----
     entries, counts = view["slab"](cap)
     pc = pair_counts(rt, entries, counts, tx, cap)
     opt_entries, opt_counts = view["slab"](1024)
@@ -370,7 +397,7 @@ def check_view(torch, view: dict, timed: bool, phase: str, f64_band: bool = Fals
         if not geom:
             r2 = check_fwd(opt_entries, opt_counts, 1024, False)
             if timed:
-                results[name]["ms_by_shape"] = {"cap2048_all_tiles": r["ms"], "cap1024_half_tiles": r2["ms"]}
+                results[name]["ms_by_shape"] = {f"cap{cap}_all_tiles": r["ms"], "cap1024_half_tiles": r2["ms"]}
             results[name]["opt_shape"] = {"cap": 1024, "kept_tiles": int(view["keep"].sum()),
                                           **pair_counts(rt, opt_entries, opt_counts, tx, 1024), **r2}
         emit({"phase": phase, "kernel": name, **results[name]})
@@ -622,9 +649,9 @@ def check_recovery(cfglib, torch, n_frames: int = 20, bad=range(6, 9)) -> dict:
             frame = Frame(uid=fid, ts=ds.ts[fid], color_u8=torch.full((H, W, 3), 0.5, device=dev),
                           depth_raw=torch.zeros((H, W, 1), device=dev), mask=torch.ones((H, W, 1), device=dev),
                           gt_pose_w2c=ds.poses[fid], intr=ds.intrinsics, depth_scale=1.0, device=dev,
-                          nlevel=ef.nlevel, prefiltered=True, filter_depth=True, bilateral=ds.bilateral_mode)
+                          nlevel=ef.nlevel_frame, prefiltered=True, filter_depth=True, bilateral=ds.bilateral_mode)
         else:
-            frame = build_frame(ds, fid, False, dev, nlevel=ef.nlevel)
+            frame = build_frame(ds, fid, False, dev, nlevel=ef.nlevel_frame)
         ef.reconstruct(frame)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -670,7 +697,7 @@ def check_resume(cfglib, torch, ckpt_path: str, saved, n_more: int = 4) -> dict:
                "launches": dict(rt.LAUNCHES)}
     ds = load_dataset(cfg, ef.device)
     for fid in range(ef.mapper.time, n):
-        ef.reconstruct(build_frame(ds, fid, False, ef.device, nlevel=ef.nlevel))
+        ef.reconstruct(build_frame(ds, fid, False, ef.device, nlevel=ef.nlevel_frame))
     torch.cuda.synchronize()
     ref, est = ef._traj_np("ref"), ef._traj_np("est")
     ate = evalu.ate_rmse(ref[:, :3, 3], est[:, :3, 3])
@@ -682,6 +709,306 @@ def check_resume(cfglib, torch, ckpt_path: str, saved, n_more: int = 4) -> dict:
         fail(f"resume: loaded {at_load}, saved time {time0} and {active0} active surfels")
     if len(est) != n or not ate < 1.0:
         fail(f"resume: ATE {ate} cm over {len(est)} frames")
+    return out
+
+
+SMOKE_RUNS = os.path.join(REPO, "build", "smoke_runs")
+
+
+def variant_run(cfglib, torch, label: str, overrides: dict, n_frames: int = 24) -> tuple:
+    """`main.run` over `n_frames` of the slice configuration with
+    `overrides` merged in (no evaluations), the launch counts zeroed just
+    before the frame loop and read just after. Returns the record and the
+    system."""
+    from eggfusion_tpu_torch.core import tracker as ttr
+    from eggfusion_tpu_torch.main import run
+    from eggfusion_tpu_torch.ops import raster_tile as rt
+    from eggfusion_tpu_torch.utils import eval as evalu
+
+    # the runs' PLY and checkpoint stay out of OUT_DIR (`check_mesh`
+    # removes them)
+    cfg = cfglib.merge(cfglib.slice_config(n_frames, os.path.join(SMOKE_RUNS, label)),
+                       cfglib.merge(overrides, {"System": {"eval_tracking": False, "eval_render": False,
+                                                           "eval_recon": False}}))
+    stages = {}
+
+    def on_stage(stage, ef):
+        stages[stage] = dict(rt.LAUNCHES)
+        rt.reset_launch_counts()
+
+    rt.reset_launch_counts()
+    ttr.EARLY_EXIT_ITERATIONS["run"] = 0
+    ef = run(cfg, on_stage=on_stage)
+    ref, est = ef._traj_np("ref"), ef._traj_np("est")
+    rec = {"label": label, "frames": n_frames, "fps": n_frames / ef.run_wall_s,
+           "fps_after_frame0": (n_frames - 1) / max(ef.run_wall_s - ef.run_frame0_s, 1e-9),
+           "ate_cm": evalu.ate_rmse(ref[:, :3, 3], est[:, :3, 3]),
+           "active_surfels": int(ef.mapper.surfels.num_active()), "opt_steps": ef.mapper.opt_steps_total,
+           "model_pyramid_base": list(ef.model_map["pyramid"][0].intensity.shape),
+           "frame_pyramid_levels": ef.nlevel_frame,
+           "launches": stages["loop"]}
+    return rec, ef
+
+
+def check_variants(cfglib, torch, main_fps: float) -> dict:
+    """Phase "variants": the JAX package's run modes on the slice
+    configuration, 24 frames each: the model view at 1/2 with solver stride
+    1 (`bench.py`'s BENCH_MVDOWN), and again with a model-render cap of 4096
+    (the JAX package's `halfview4096` A/B arm, `tools/accuracy_ab.py`: a
+    1/2-view sub-column spans twice the scene, and at cap 2048 its slab
+    overflows into the spawn flood that arm measured), the settled-frame
+    render skip (with wider tolerances if the defaults never fire on this
+    scene), and the GN early exit. Then
+    every kernel against its plain version on the half-resolution view of
+    the cap-4096 run's final map, the forward at that cap."""
+    from eggfusion_tpu_torch.core import tracker as ttr
+
+    out = {"main_fps_after_frame0": main_fps}
+    mvdown = {"Tracking": {"model_view_down": 2, "solver_stride": 1}}
+    out["mvdown"], ef = variant_run(cfglib, torch, "mvdown", mvdown)
+    del ef
+    rec, ef = variant_run(cfglib, torch, "mvdown_cap4096", cfglib.merge(mvdown, {"System": {"raster_cap": 4096}}))
+    out["mvdown_cap4096"] = rec
+    sm, ds = ef.mapper.surfels, ef.dataset
+    w2c = torch.as_tensor(np.asarray(ds[len(ds) - 1][4], np.float32), device=ef.device)
+    intr = ds.intrinsics
+    view = map_view(torch, sm, w2c, intr.as_tensor(ef.device) / 2, intr.width // 2, intr.height // 2)
+    kernels = check_view(torch, view, timed=False, phase="variants_check", cap=4096)
+    rec["kernel_check"] = {k: {"max_rel_err": v["max_rel_err"], "pairs": v["pairs"]}
+                           for k, v in kernels.items() if isinstance(v, dict)}
+    del ef
+    skip = {"Mapping": {"settled_skip": True}}
+    rec, ef = variant_run(cfglib, torch, "settled_skip", skip)
+    rec["tolerances"] = "default"
+    if ef.mapper.render_skips == 0:
+        out["settled_skip_default"] = rec
+        wide = {"settled_skip_tol_frac": 0.05, "settled_skip_max_rot": 2.0, "settled_skip_max_trans": 0.05}
+        rec, ef = variant_run(cfglib, torch, "settled_skip", cfglib.merge(skip, {"Mapping": wide}))
+        rec["tolerances"] = wide
+    rec.update(render_skips=ef.mapper.render_skips, skip_frames=ef.mapper.skip_frames)
+    out["settled_skip"] = rec
+    del ef
+    rec, ef = variant_run(cfglib, torch, "early_exit", {"Tracking": {"early_exit": True}})
+    rec["gn_iterations"] = ttr.EARLY_EXIT_ITERATIONS["run"]
+    rec["gn_iterations_configured"] = sum(ef.tracker.config.pyramid_iters) * (rec["frames"] - 1)
+    out["early_exit"] = rec
+    del ef
+    emit({"phase": "variants", **out})
+    for label in ("mvdown", "mvdown_cap4096"):
+        if out[label]["model_pyramid_base"][:2] != [352, 640] or out[label]["frame_pyramid_levels"] != 4:
+            fail(f"variants: {label}'s model pyramid starts at {out[label]['model_pyramid_base']}, not the 1/2 view")
+    for label in ("mvdown", "mvdown_cap4096", "settled_skip"):
+        for k in ("composite_fwd", "composite_bwd"):
+            if out[label]["launches"][k] <= 0:
+                fail(f"variants: kernel {k} was never launched on {label}")
+        if not out[label]["ate_cm"] < 1.0:
+            fail(f"variants: {label} ATE {out[label]['ate_cm']} cm >= 1 cm")
+    # the JAX package's halfview4096 arm kept a healthy map (154013 surfels
+    # against 134830 at full view): the slab must hold the 1/2 view
+    if not out["mvdown_cap4096"]["active_surfels"] < 200000:
+        fail(f"variants: the 1/2 view at cap 4096 grew the map to {out['mvdown_cap4096']['active_surfels']}")
+    if not out["settled_skip"]["render_skips"] > 0:
+        fail("variants: settled_skip never skipped a render")
+    if not out["early_exit"]["ate_cm"] < 3.0:
+        fail(f"variants: early_exit ATE {out['early_exit']['ate_cm']} cm >= 3 cm")
+    return out
+
+
+class DeviceLaunches:
+    """Kernel launches by device, counted around the wrappers' launch
+    functions while it is entered (a harness instrument; `LAUNCHES` keeps
+    the path's totals)."""
+
+    def __init__(self, rt):
+        self.rt, self.counts = rt, {}
+
+    def _wrap(self, name, fn):
+        def counted(lib, entries, *args):
+            key = f"{name}:{entries.device}"
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return fn(lib, entries, *args)
+        return counted
+
+    def __enter__(self):
+        self.saved = self.rt._launch_fwd, self.rt._launch_bwd
+        self.rt._launch_fwd = self._wrap("fwd", self.saved[0])
+        self.rt._launch_bwd = self._wrap("bwd", self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.rt._launch_fwd, self.rt._launch_bwd = self.saved
+
+
+def batched_step_ms(ef) -> float:
+    """Median device-clock milliseconds (CUDA events on the first GPU,
+    whose Adam step waits for every GPU's gradients) of the window-batched
+    step on the run's final map and window, after the run."""
+    m = ef.mapper
+    window = list(m.keyframe_manager.sliding_window)
+    batch = m._window_batch(window)
+    return cuda_ms(lambda: m._window_opt_step(m.surfels, m._opt_moments, m._opt_stepno, batch, m._opt_geo,
+                                              m.sw_lrs, window[0].width, window[0].height), reps=5)
+
+
+def check_mesh(cfglib, torch, n_frames: int = 24, multi_only: bool = False) -> dict:
+    """Phase "mesh": the window-batched, keyframe-sharded optimization with
+    pixel-sharded tracking (`System.mesh_devices`), 24 frames of the slice
+    configuration: on one GPU; with 2 shards both placed on cuda:0 (the
+    split and the reduction without a second card), which must give the
+    first run's trajectory within 5e-4; and, with 2 or more GPUs visible, on
+    n = min(4, count) GPUs with a window of n keyframes against the same
+    window on one GPU: the same agreement, both kernels launched on every
+    GPU, and the backward held to its plain version on the last GPU."""
+    from eggfusion_tpu_torch.ops import raster_tile as rt
+    from eggfusion_tpu_torch.parallel import mesh as pmesh
+
+    out = {}
+    if not multi_only:
+        rec, ef = variant_run(cfglib, torch, "mesh1", {"System": {"mesh_devices": 1}}, n_frames)
+        base = ef._traj_np("est")
+        rec["batched_step_ms"] = batched_step_ms(ef)
+        out["mesh1"] = rec
+        del ef
+        real_make_mesh = pmesh.make_mesh
+        pmesh.make_mesh = lambda n, device: [torch.device("cuda", 0)] * n
+        try:
+            rec, ef = variant_run(cfglib, torch, "mesh2_on_gpu0", {"System": {"mesh_devices": 2}}, n_frames)
+        finally:
+            pmesh.make_mesh = real_make_mesh
+        rec["traj_max_abs_diff"] = float(np.abs(ef._traj_np("est") - base).max())
+        rec["batched_step_ms"] = batched_step_ms(ef)
+        out["mesh2_on_gpu0"] = rec
+        del ef
+        # the burst schedule under a mesh with the 1/2 model view: frame 6
+        # optimizes, its spawn render is the geometry-only kernel at 1/2
+        rec, ef = variant_run(cfglib, torch, "burst_mvdown_mesh1",
+                              {"Mapping": {"opt_schedule": "burst"}, "System": {"mesh_devices": 1, "raster_cap": 4096},
+                               "Tracking": {"model_view_down": 2, "solver_stride": 1}}, 7)
+        out["burst_mvdown_mesh1"] = rec
+        del ef
+    count = torch.cuda.device_count()
+    if count < 2:
+        out["multi_gpu"] = f"not run: {count} GPU visible, no multi-GPU run possible"
+    else:
+        n = min(4, count)
+        # a window of n keyframes, one per GPU once it fills (a GPU whose
+        # block holds only padding renders nothing), in both runs
+        window = {"Tracking": {"sliding_window_size": n}}
+        rec, ef = variant_run(cfglib, torch, f"mesh1_window{n}",
+                              cfglib.merge(window, {"System": {"mesh_devices": 1}}), n_frames)
+        base = ef._traj_np("est")
+        rec["batched_step_ms"] = batched_step_ms(ef)
+        out[f"mesh1_window{n}"] = rec
+        del ef
+        with DeviceLaunches(rt) as per_device:
+            rec, ef = variant_run(cfglib, torch, f"mesh{n}", cfglib.merge(window, {"System": {"mesh_devices": n}}),
+                                  n_frames)
+        rec["launches_by_device"] = per_device.counts
+        rec["traj_max_abs_diff"] = float(np.abs(ef._traj_np("est") - base).max())
+        rec["batched_step_ms"] = batched_step_ms(ef)
+        # the backward on the last GPU against its plain version
+        last = torch.device("cuda", n - 1)
+        ds = ef.dataset
+        w2c = torch.as_tensor(np.asarray(ds[len(ds) - 1][4], np.float32), device=last)
+        s = ef.mapper.surfels
+        s_last = s.replace(**{f: getattr(s, f).to(last) for f in ("xyz", "features_dc", "features_rest", "scaling",
+                                                                   "rotation", "opacity", "active")})
+        view = map_view(torch, s_last, w2c, ds.intrinsics.as_tensor(last), ds.intrinsics.width,
+                        ds.intrinsics.height)
+        entries, counts = view["slab"](1024)
+        counts = torch.where(view["keep"][:, None], counts, torch.zeros_like(counts))
+        intr, tx = view["intr"], view["tx"]
+        outs = rt.composite_fwd(entries, counts, intr, tx, 1024)
+        g = torch.Generator(device=last).manual_seed(11)
+        cots = [torch.randn(x.shape, generator=g, device=last) for x in outs]
+        d_k = rt.composite_bwd(entries, counts, intr, *cots, outs[4], tx, 1024)
+        d_p = rt.composite_bwd_plain(entries, counts, intr, *cots, tx, 1024, tile_batch=16)
+        rel, ab = bwd_errors(d_k, d_p)
+        rec["bwd_last_gpu"] = {"device": str(last), "max_rel_err": rel, "max_abs_err": ab, "tol": BWD_TOL}
+        out[f"mesh{n}"] = rec
+        del ef
+        missing = [f"{k}:cuda:{i}" for k in ("fwd", "bwd") for i in range(n)
+                   if per_device.counts.get(f"{k}:cuda:{i}", 0) <= 0]
+        if missing:
+            fail(f"mesh: no launches of {missing} on the {n}-GPU run")
+        if not rec["traj_max_abs_diff"] <= 5e-4:
+            fail(f"mesh: {n} GPUs differ from one by {rec['traj_max_abs_diff']} in the trajectory")
+        if not rel <= BWD_TOL:
+            fail(f"mesh: the backward on {last} differs from its plain version by {rel}")
+    emit({"phase": "mesh", **out})
+    for label, r in out.items():
+        if not isinstance(r, dict):
+            continue
+        if not (r["ate_cm"] < 1.0 and r["opt_steps"] > 0):
+            fail(f"mesh: {label} ATE {r['ate_cm']} cm, {r['opt_steps']} batched steps")
+        for k in ("composite_fwd", "composite_bwd"):
+            if r["launches"][k] <= 0:
+                fail(f"mesh: kernel {k} was never launched on {label}")
+    if "burst_mvdown_mesh1" in out and out["burst_mvdown_mesh1"]["launches"]["composite_geom"] <= 0:
+        fail("mesh: the geometry-only kernel was never launched on the burst schedule under a mesh")
+    if "mesh2_on_gpu0" in out and not out["mesh2_on_gpu0"]["traj_max_abs_diff"] <= 5e-4:
+        fail(f"mesh: 2 shards differ from one by {out['mesh2_on_gpu0']['traj_max_abs_diff']} in the trajectory")
+    shutil.rmtree(SMOKE_RUNS, ignore_errors=True)
+    return out
+
+
+def check_frustum_compact(torch, ef) -> dict:
+    """A compacted forward render (`raster_tile.frustum_compact`, on from
+    any size) of the main path's final map at CAP 2048, both timed, held to
+    the uncompacted render of the surfels the compaction keeps (its
+    gather, reorder and re-derived `active`) and to the full render, each
+    within the forward tolerance; at the last frame's pose, or at an
+    earlier frame's if more surfels than the half-capacity prefix are in
+    view there. The compaction keeps surfels within 63 px of the image, as
+    the JAX module does: a surfel further out whose splat still reached in
+    would be dropped, and the check against the full render would fail."""
+    from eggfusion_tpu_torch.core import surfels as sf
+    from eggfusion_tpu_torch.ops import raster_tile as rt
+
+    ds, s = ef.dataset, ef.mapper.surfels
+    intr = ds.intrinsics
+    ia = intr.as_tensor(ef.device)
+    n = s.capacity
+    with torch.no_grad():
+        params = sf.render_params(s)
+        tagged = dict(params, slot=torch.arange(n, device=ef.device))
+        for fid in (len(ds) - 1, len(ds) // 2, 0):
+            w2c = torch.as_tensor(np.asarray(ds[fid][4], np.float32), device=ef.device)
+            comp_params = rt.frustum_compact(tagged, w2c, ia, intr.width, intr.height)
+            kept = int(comp_params["active"].sum())
+            if kept < n // 2:
+                break
+        else:
+            fail(f"frustum: {kept} surfels in view exceed the compacted prefix of {n // 2} at every pose tried")
+        kept_mask = torch.zeros(n, dtype=torch.bool, device=ef.device)
+        kept_mask[comp_params["slot"][comp_params["active"]]] = True
+        render = lambda p: rt.render_tile(p, w2c, ia, intr.width, intr.height, sh_degree=0, cap=2048,
+                                          need_grad=False)
+        full = render(params)
+        same_set = render(dict(params, active=kept_mask))
+        full_ms = cuda_ms(lambda: render(params), reps=10)
+        saved = rt.FRUSTUM_COMPACT_MIN
+        rt.FRUSTUM_COMPACT_MIN = 0
+        try:
+            comp = render(params)
+            comp_ms = cuda_ms(lambda: render(params), reps=10)
+        finally:
+            rt.FRUSTUM_COMPACT_MIN = saved
+    rel = lambda a, b: max(float(((a[k] - b[k]).abs() / (1 + b[k].abs())).max()) for k in b)
+    over = sum(int(((comp[k] - full[k]).abs() > FWD_TOL * (1 + full[k].abs())).sum()) for k in full)
+    out = {"phase": "frustum", "frame": fid, "capacity": n, "kept": kept, "prefix": n // 2,
+           "max_rel_err": rel(comp, same_set), "tol": FWD_TOL, "same_bits": same_bits(
+               [comp[k] for k in full], [same_set[k] for k in full]),
+           "vs_full_render": {"max_rel_err": rel(comp, full), "values_over_tol": over,
+                              "values": sum(v.numel() for v in full.values())},
+           "render_ms": full_ms, "compacted_render_ms": comp_ms}
+    emit(out)
+    if not out["max_rel_err"] <= FWD_TOL:
+        fail(f"frustum: the compacted render differs from the render of the surfels it keeps by "
+             f"{out['max_rel_err']}")
+    if over > 0:
+        fail(f"frustum: the compacted render differs from the full render by {out['vs_full_render']['max_rel_err']} "
+             f"({over} values over the tolerance)")
     return out
 
 
@@ -824,7 +1151,7 @@ def run_frames(torch, cfg, n_frames: int):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
         ef.reconstruct(Frame(uid=i, ts=ts, color_u8=color, depth_raw=depth, mask=mask, gt_pose_w2c=pose,
-                             intr=ds.intrinsics, depth_scale=ds.depth_scale, device=ef.device, nlevel=ef.nlevel,
+                             intr=ds.intrinsics, depth_scale=ds.depth_scale, device=ef.device, nlevel=ef.nlevel_frame,
                              bilateral=ds.bilateral_mode))
     torch.cuda.synchronize()
     return ef, (n_frames - 1) / (time.perf_counter() - t0), [bool(c) for c in converged]
@@ -949,8 +1276,11 @@ def check_tum(cfglib, torch, n_frames: int = 60, n_compare: int = 20) -> dict:
     return out
 
 
-def main() -> None:
+def main(argv: list[str]) -> None:
     import torch
+
+    # `--phase mesh`: the build and the multi-GPU part of phase "mesh" alone
+    phases = argv[argv.index("--phase") + 1:][:1] if "--phase" in argv else []
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA GPU")
@@ -977,10 +1307,17 @@ def main() -> None:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "ptxas": ptxas_usage(report), "blocks_per_sm": blocks})
 
+    if phases == ["mesh"]:
+        mesh = check_mesh(cfglib, torch, multi_only=True)
+        print(gpu, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
     checks = check_kernels(cfglib, torch)
     adversarial = check_adversarial(torch)
     main_run, main_stages, ef = drive(cfglib, torch, n_frames=48, burst=False, final_global_opt=True)
     finish = check_finish(torch, ef, main_stages, main_run["opt_steps"])
+    frustum = check_frustum_compact(torch, ef)
     saved = (ef.mapper.time, int(ef.mapper.surfels.num_active()))
     ckpt_path = os.path.join(ef.save_dir, "checkpoint.npz")
     del ef
@@ -988,9 +1325,15 @@ def main() -> None:
     recovery = check_recovery(cfglib, torch)
     resume = check_resume(cfglib, torch, ckpt_path, saved)
     tum = check_tum(cfglib, torch)
+    variants = check_variants(cfglib, torch, main_run["fps_after_frame0"])
+    mesh = check_mesh(cfglib, torch)
     by_path = {"main": main_stages["loop"], "finish": main_stages["finish"], "eval": main_stages["eval"],
                "burst": burst_stages["loop"], "recovery": recovery["launches"], "resume": resume["launches"],
-               "tum": tum["launches"]}
+               "tum": tum["launches"], "mvdown": variants["mvdown"]["launches"],
+               "mvdown_cap4096": variants["mvdown_cap4096"]["launches"],
+               "settled_skip": variants["settled_skip"]["launches"],
+               "early_exit": variants["early_exit"]["launches"],
+               **{label: r["launches"] for label, r in mesh.items() if isinstance(r, dict)}}
 
     src = "eggfusion_tpu_torch/csrc/"
     rows = [
@@ -1012,7 +1355,7 @@ def main() -> None:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"gpu": gpu, "checks": checks, "adversarial": adversarial, "main": main_run,
                    "finish": finish, "burst": burst_run, "recovery": recovery, "resume": resume,
-                   "tum": tum, "kernels": kernels},
+                   "tum": tum, "variants": variants, "mesh": mesh, "frustum": frustum, "kernels": kernels},
                   f, indent=1)
     emit({"kernels": kernels})
     print(gpu, flush=True)
@@ -1021,4 +1364,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

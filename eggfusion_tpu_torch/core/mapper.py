@@ -1,16 +1,16 @@
 """Mapping backend: keyframing, surfel spawning, fusion orchestration and
-sliding-window map optimization (port of `eggfusion_tpu/core/mapper.py`,
-in part).
+sliding-window map optimization (port of `eggfusion_tpu/core/mapper.py`).
 
-Ported: `MapperConfig`, Adam and the losses, `KeyFrame` (device or host
-storage) / `KeyFrameManager`, the keyframe-map NaN check, and in `Mapping`
-the per-frame `map_update`, `opt_step`, spawn sampling, the binning cache,
-`mapping`, the adaptive model cap, map maintenance (prune + compact), the
-capacity ladder (`System.capacity_bucketing`), the amortized and burst
-optimization schedules, the global keyframe optimization of `finish` and
-the full model render of the evaluations. Not ported (the constructor
-raises where a config asks for them): `settled_skip`, `model_view_down` > 1
-and the multi-device window step.
+`MapperConfig`, Adam and the losses, `KeyFrame` (device or host storage) /
+`KeyFrameManager`, the keyframe-map NaN check, and in `Mapping` the
+per-frame `map_update` (with the model view at 1/`Tracking.model_view_down`
+and the settled fuse-only frame of `Mapping.settled_skip`), `opt_step`,
+spawn sampling, the binning cache, `mapping`, the adaptive model cap, map
+maintenance (prune + compact), the capacity ladder
+(`System.capacity_bucketing`), the amortized and burst optimization
+schedules, the window-batched step across devices (`System.mesh_devices`,
+`parallel.mesh`), the global keyframe optimization of `finish` and the
+full model render of the evaluations.
 
 The capacity ladder makes the same decisions as the JAX module's, from the
 same lagged count readbacks. What there exists only to hide XLA compiles
@@ -71,6 +71,10 @@ class MapperConfig(NamedTuple):
 OPT_FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity")
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+# what `Mapping.mapping` returns on a settled fuse-only frame
+# (Mapping.settled_skip): the system keeps the previous tracking model view
+KEEP_MODEL_MAP = "__keep_model_map__"
 
 
 def _adam_init(params: dict) -> dict:
@@ -301,11 +305,28 @@ class Mapping:
         self.device = torch.device(device)
         H = int(cfg.Dataset.Calibration.height)
         W = int(cfg.Dataset.Calibration.width)
-        for key, ok in (("Tracking.model_view_down", int(cfg.Tracking.get("model_view_down", 1)) == 1),
-                        ("Mapping.settled_skip", not bool(m.get("settled_skip", False))),
-                        ("System.mesh_devices", int(cfg.System.get("mesh_devices", 0)) == 0)):
-            if not ok:
-                raise NotImplementedError(f"{key} is not ported")
+        # model-view downsample (Tracking.model_view_down): the per-frame
+        # spawn / tracking model render runs at 1/down resolution
+        self.view_down = int(cfg.Tracking.get("model_view_down", 1))
+        if self.view_down > 1 and (W % self.view_down or H % self.view_down):
+            raise ValueError(f"model_view_down={self.view_down} must divide the frame size ({W}x{H})")
+        # settled-frame render skip (Mapping.settled_skip): on settled frames
+        # (lag-N counts flat within max(tol, tol_frac * count), slow lag-N
+        # motion, no failure streak, never two in a row) the model render
+        # and the spawn are skipped and tracking keeps the previous view
+        self.settled_skip = bool(m.get("settled_skip", False))
+        self.settled_skip_tol = int(m.get("settled_skip_tol", 64))
+        self.settled_skip_tol_frac = float(m.get("settled_skip_tol_frac", 5e-4))
+        self.settled_skip_max_rot = float(m.get("settled_skip_max_rot", 0.3))
+        self.settled_skip_max_trans = float(m.get("settled_skip_max_trans", 0.025))
+        self._skip_last = False
+        self.render_skips = 0
+        self.skip_frames: list[int] = []  # the frame times that skipped
+        self._count_hist: deque = deque(maxlen=3)
+        self._prev_w2c_skip = None
+        self._mag_pending: deque = deque()  # (time, HostReadback of (2,) [deg, m])
+        self._known_motion = None  # the freshest consumed (deg, m)
+        self._known_motion_time = -10
         self.mcfg = MapperConfig(
             local_map_iter=int(m.local_map_iter),
             local_map_iter_init=int(m.local_map_iter_init),
@@ -364,6 +385,19 @@ class Mapping:
         }
         self.renderer = renderer
         self.keyframe_manager = KeyFrameManager(cfg)
+        # System.mesh_devices >= 1: the window-batched, keyframe-sharded
+        # optimization step (`parallel.mesh`), the same algorithm at any
+        # device count; 0 keeps the sequential per-keyframe schedule
+        self.devices = None
+        self._window_opt_step = None
+        self._window_batch_cache = None  # (uids, WindowBatch)
+        mesh_devices = int(cfg.System.get("mesh_devices", 0))
+        if mesh_devices >= 1:
+            from eggfusion_tpu_torch.parallel import mesh as pmesh
+
+            self.devices = pmesh.make_mesh(mesh_devices, self.device)
+            self._window_opt_step = pmesh.make_window_opt_step(
+                renderer.render_at, self.mcfg, self.devices, opt_cap=renderer.opt_raster_cap)
         self.debug_nan = bool(cfg.System.get("check_nan", False))
         self._system_cfg = {
             "reco_normal_thres": float(cfg.System.reco_normal_threshold),
@@ -423,11 +457,15 @@ class Mapping:
     # ---------------------------------------------------------- programs --
 
     def map_update(self, s: sf.SurfelMap, frame_map: dict, w2c, intr, time: int, width: int,
-                   height: int, first: bool, full_post: bool, model_cap: int = 0, conv=None):
-        """Per-frame map update: fuse, render the model once (full with
-        `full_post`, else geometry-only), then spawn where the model is thin
-        or in front of the measurement. Returns (s, model_map or None,
-        stats_vec (3,) int32 [fused, error, occupancy] or None)."""
+                   height: int, first: bool, full_post: bool, model_cap: int = 0, conv=None,
+                   down: int = 1, do_render: bool = True):
+        """Per-frame map update: fuse, render the model once at 1/`down`
+        resolution (full with `full_post`, else geometry-only), then spawn
+        where the model is thin or in front of the measurement (the mask
+        computed on the 1/down grid and nearest-upsampled; fusion stays
+        full-res). `do_render=False` is the settled fuse-only frame: no
+        render, no spawn. Returns (s, model_map or None, stats_vec (3,)
+        int32 [fused, error, occupancy or -1] or None)."""
         from eggfusion_tpu_torch.system import postprocess_model_map
 
         mcfg, scfg, sys_cfg = self.mcfg, self.scfg, self._system_cfg
@@ -441,14 +479,22 @@ class Mapping:
             s, stats = fusion.fuse_frame(
                 s, w2c, intr, frame_map["vertex_map_w"], frame_map["normal_map_w"],
                 frame_map["color_map"], depth, geo_gate, mcfg.fusion_dist_thres, scfg)
+            if not do_render:
+                s = sf.update_stability(s, mcfg.stable_confidence)
+                no_occ = torch.full((), -1, dtype=torch.int32, device=self.device)
+                return s, None, torch.stack([stats.fused_pixels, stats.error_pixels, no_occ])
             model = self.renderer.render_at(
-                sf.render_params(s), w2c, intr, width, height, geom_only=not full_post,
-                need_grad=False, cap=model_cap or None, with_occupancy=self._adaptive_cap)
+                sf.render_params(s), w2c, intr / down if down > 1 else intr, width // down, height // down,
+                geom_only=not full_post, need_grad=False, cap=model_cap or None,
+                with_occupancy=self._adaptive_cap)
             occ = model.pop("max_occupancy", torch.full((), -1, dtype=torch.int32, device=self.device))
             stats_vec = torch.stack([stats.fused_pixels, stats.error_pixels, occ.to(torch.int32)])
+            depth_d = depth[::down, ::down] if down > 1 else depth
             opacity_mask = model["opacity"] < mcfg.add_opacity_thres
-            depth_err = model["depth"] - depth
-            sample_mask = (opacity_mask | (depth_err > mcfg.add_depth_thres)) & (depth > 0) & conv
+            depth_err = model["depth"] - depth_d
+            sample_mask = (opacity_mask | (depth_err > mcfg.add_depth_thres)) & (depth_d > 0) & conv
+            if down > 1:  # nearest-upsample: spawn picks full-res pixels
+                sample_mask = sample_mask.repeat_interleave(down, dim=0).repeat_interleave(down, dim=1)
             ratio = mcfg.sample_ratio
             cap = mcfg.spawn_cap
             if full_post:
@@ -461,7 +507,7 @@ class Mapping:
                 model_map = postprocess_model_map(
                     rendered, frame_map, intr, w2c, sys_cfg["reco_normal_thres"],
                     sys_cfg["reco_depth_thres"], sys_cfg["reco_opacity_thres"],
-                    sys_cfg["depth_min"], sys_cfg["depth_max"], sys_cfg["nlevel"],
+                    sys_cfg["depth_min"], sys_cfg["depth_max"], sys_cfg["nlevel"], down=down,
                     bilateral=sys_cfg["bilateral"])
         else:
             sample_mask = depth > 0
@@ -565,6 +611,7 @@ class Mapping:
             t, ref = self._count_pending.popleft()
             self._known_count = int(ref.numpy())
             self._known_time = t
+            self._count_hist.append(self._known_count)
 
     def _cap_needed(self) -> int:
         """The freshest consumed count plus the spawn headroom (plus frame
@@ -613,25 +660,72 @@ class Mapping:
         self._opt_cache_map = {}
         self._opt_moments = None
 
-    def mapping(self, frame, frame_map: dict, fail_streak: int = 0) -> dict | None:
+    def _skip_render_ok(self, fail_streak: int) -> bool:
+        """The settledness gate of the fuse-only frame (settled_skip), from
+        the lag-N readbacks alone: the last three consumed counts within
+        max(tol, tol_frac * count) of each other and fresh, a fresh motion
+        reading under the slow-motion limits, no failure streak and no skip
+        on the frame before. Any doubt renders."""
+        if not self.settled_skip or self._skip_last or fail_streak > 0:
+            return False
+        h = self._count_hist
+        if len(h) < h.maxlen or self._known_time < self.time - 3 * self.count_lag:
+            return False
+        tol = max(self.settled_skip_tol, int(self.settled_skip_tol_frac * self._known_count))
+        if max(h) - min(h) > tol:
+            return False
+        if self._known_motion is None or self._known_motion_time < self.time - 3 * self.count_lag:
+            return False
+        rot, trans = self._known_motion
+        return rot <= self.settled_skip_max_rot and trans <= self.settled_skip_max_trans
+
+    def _observe_motion(self, frame) -> None:
+        """Settled skip's motion gate: the pose delta to the previous frame
+        as an async readback, consumed `count_lag` frames later."""
+        w2c_now = frame.w2c_matrix()
+        if self._prev_w2c_skip is not None:
+            self._mag_pending.append((self.time, HostReadback(_relative_pose_mag(w2c_now, self._prev_w2c_skip))))
+        self._prev_w2c_skip = w2c_now
+        while self._mag_pending and self._mag_pending[0][0] <= self.time - self.count_lag:
+            t, ref = self._mag_pending.popleft()
+            v = ref.numpy()
+            self._known_motion = (float(v[0]), float(v[1]))
+            self._known_motion_time = t
+
+    def mapping(self, frame, frame_map: dict, fail_streak: int = 0):
         """Per-frame mapping entry. Returns the postprocess model map when
         this frame's map update produced it, None on burst-schedule
-        optimization frames (the caller renders after the optimization)."""
+        optimization frames (the caller renders after the optimization), and
+        KEEP_MODEL_MAP on a settled fuse-only frame (the caller keeps the
+        previous model view)."""
         first = self.time == 0
         amortized = self.mcfg.opt_schedule == "amortized"
         opt_frame = self.time % self.mcfg.sw_optimize_freq == 0
         if self.bucketing:
             self._ensure_capacity()
+        elif self.settled_skip:
+            self._consume_counts()  # the settledness signal without the ladder
+        if self.settled_skip:
+            self._observe_motion(frame)
         full_post = True if amortized else not opt_frame
         leak = fail_streak >= self.gate_leak_streak > 0
         suspect = 0 < fail_streak and not leak
         conv = None
         if self.gate_fusion and not leak:
             conv = getattr(frame, "tracking_map_ok", getattr(frame, "tracking_converged", None))
+        # only on fused-model-map frames: burst-schedule optimization frames
+        # render after the optimization anyway
+        skip = not first and full_post and self._skip_render_ok(fail_streak)
         with torch.no_grad():
             self.surfels, model_map, stats_vec = self.map_update(
                 self.surfels, frame_map, frame.w2c_matrix(), frame.intr, self.time,
-                frame.width, frame.height, first, full_post, model_cap=self.model_cap, conv=conv)
+                frame.width, frame.height, first, full_post, model_cap=self.model_cap, conv=conv,
+                down=self.view_down, do_render=not skip)
+        self._skip_last = skip
+        if skip:
+            self.render_skips += 1
+            self.skip_frames.append(self.time)
+            model_map = KEEP_MODEL_MAP
         if stats_vec is not None:
             self._stats_pending.append((self.time, HostReadback(stats_vec)))
         while self._stats_pending and self._stats_pending[0][0] <= self.time - self.count_lag:
@@ -640,7 +734,7 @@ class Mapping:
             self.fusion_stats[t] = (int(v[0]), int(v[1]))
             if int(v[2]) >= 0:
                 self._observe_occupancy(int(v[2]))
-        if self.bucketing:
+        if self.bucketing or self.settled_skip:
             self._count_pending.append((self.time, HostReadback(self.surfels.count)))
 
         if self._maint_pending is not None:
@@ -737,15 +831,37 @@ class Mapping:
                     self.surfels = sf.shrink_surfels(self.surfels, rung)
                 self._invalidate_capacity_state()
 
+    def _window_batch(self, kfs: list):
+        """The keyframes as the mesh step's batch: B = the window size
+        rounded up to a multiple of the device count, padding members
+        masked out; cached per window generation (the members' maps and
+        poses are frozen snapshots), each shard's tensors on its device."""
+        from eggfusion_tpu_torch.parallel import mesh as pmesh
+
+        key = tuple(kf.uid for kf in kfs)
+        cached = self._window_batch_cache
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        n = len(self.devices)
+        B = -(-max(self.keyframe_manager.window_size, 1, n) // n) * n
+        batch = pmesh.window_batch(kfs, B, self.devices)
+        self._window_batch_cache = (key, batch)
+        return batch
+
     def _amortized_opt(self) -> None:
         """local_map_iter * |window| steps per sw_optimize_freq frames, run
         1-2 at a time against a rotating window member whose tile binning is
-        cached for its stay in the window."""
+        cached for its stay in the window. Under a mesh each step renders the
+        whole window batched, so the accumulator advances local_map_iter /
+        sw_optimize_freq steps per frame: the same keyframe renders."""
         window = list(self.keyframe_manager.sliding_window)
         if not window:
             return
         mcfg = self.mcfg
-        per_frame = mcfg.local_map_iter / mcfg.sw_optimize_freq * len(window) * mcfg.opt_step_scale
+        per_frame = mcfg.local_map_iter / mcfg.sw_optimize_freq
+        if self.devices is None:
+            per_frame *= len(window)
+        per_frame *= mcfg.opt_step_scale
         self._opt_acc += per_frame
         n = int(self._opt_acc)
         if n == 0:
@@ -756,6 +872,16 @@ class Mapping:
             self._opt_stepno = torch.zeros((), dtype=torch.int32, device=self.device)
             self._host_step = 0
             self._opt_geo = _geo_snapshot(self.surfels)
+        if self.devices is not None:
+            batch = self._window_batch(window)
+            for _ in range(n):
+                self.surfels, self._opt_moments, self._opt_stepno, loss = self._window_opt_step(
+                    self.surfels, self._opt_moments, self._opt_stepno, batch, self._opt_geo, self.sw_lrs,
+                    window[0].width, window[0].height)
+                if self.debug_nan and not np.isfinite(float(loss)):
+                    raise FloatingPointError("NaN/Inf batched map-optimization loss")
+            self._note_opt(n, loss)
+            return
         rot = max(1, mcfg.sw_optimize_freq // len(window))
         kf = window[(self.time // rot) % len(window)]
         live_uids = {k.uid for k in window}
@@ -805,13 +931,34 @@ class Mapping:
                     raise FloatingPointError(f"NaN/Inf map-optimization loss at keyframe uid={kf.uid}")
         return loss
 
+    def _optimize_batched(self, batches: list, n_steps_each: int, lrs: dict):
+        """The mesh path of `_optimize`: each element of `batches` is a list
+        of keyframes rendered together (one block per device) for
+        `n_steps_each` Adam steps."""
+        geo = _geo_snapshot(self.surfels)
+        moments = _adam_init({k: getattr(self.surfels, k) for k in OPT_FIELDS})
+        step = torch.zeros((), dtype=torch.int32, device=self.device)
+        loss = torch.full((), float("nan"), device=self.device)
+        for kfs in batches:
+            batch = self._window_batch(kfs)
+            for _ in range(n_steps_each):
+                self.surfels, moments, step, loss = self._window_opt_step(
+                    self.surfels, moments, step, batch, geo, lrs, kfs[0].width, kfs[0].height)
+                self.opt_steps_total += 1
+                if self.debug_nan and not np.isfinite(float(loss)):
+                    raise FloatingPointError("NaN/Inf batched map-optimization loss")
+        return loss
+
     def frame_batch_optimization(self, frame):
         """local_map_iter steps on each window member (local_map_iter_init
-        at frame 0)."""
+        at frame 0); under a mesh, as many steps on the window rendered as
+        one batch."""
         window = list(self.keyframe_manager.sliding_window)
         if not window:
             return float("nan")
         per_kf = self.mcfg.local_map_iter if self.time > 0 else self.mcfg.local_map_iter_init
+        if self.devices is not None:
+            return self._optimize_batched([window], per_kf, self.sw_lrs)
         return self._optimize([(kf, per_kf) for kf in window], self.sw_lrs)
 
     def keyframe_optimization(self, keyframe_num: int = -1):
@@ -819,7 +966,9 @@ class Mapping:
         `final_global_opt_iter` Adam steps per keyframe at the final learning
         rates, in runs of min(4, steps) on keyframes drawn uniformly, in
         `ids()` order, by `np.random.default_rng(self.time)` (the JAX
-        schedule, draw for draw). Returns the last loss (device scalar)."""
+        schedule, draw for draw); under a mesh, steps // window_size batched
+        steps on batches drawn the same way. Returns the last loss (device
+        scalar)."""
         ids = self.keyframe_manager.ids()
         if not ids:
             return float("nan")
@@ -829,6 +978,13 @@ class Mapping:
         kfs = [self.keyframe_manager.keyframes[i] for i in ids[:keyframe_num]]
         iters = self.mcfg.final_global_opt_iter * keyframe_num
         rng = np.random.default_rng(self.time)
+        if self.devices is not None:
+            # each batched step renders a window-sized batch of keyframes
+            # drawn uniformly: the same keyframe renders in all
+            B = max(self.keyframe_manager.window_size, 1)
+            batches = [[kfs[rng.integers(len(kfs))] for _ in range(min(B, len(kfs)))]
+                       for _ in range(max(1, iters // B))]
+            return self._optimize_batched(batches, 1, self.global_lrs)
         run_len = min(4, iters)
         runs = [(kfs[rng.integers(len(kfs))], run_len) for _ in range(iters // run_len)]
         return self._optimize(runs, self.global_lrs)

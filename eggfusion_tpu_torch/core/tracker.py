@@ -4,12 +4,15 @@
 Coarse-to-fine pyramid Gauss-Newton over point-to-plane ICP + weighted
 photometric terms, with the reference's commit rule: the dense result is
 committed only if an iteration converged, otherwise the pose falls back to
-the seed delta. The per-level iterations are a Python loop of a fixed count
-(the JAX `while_loop` with `early_exit` off) and nothing in it reads the
+the seed delta. The per-level iterations are a Python loop (the JAX
+`while_loop`); without `Tracking.early_exit` nothing in it reads the
 device: the converged flag stays a device tensor, and the host reads it
 `readback_lag` frames late through an async copy. With `Tracking.use_sparse`
 the seed comes from the sparse frontend (`core.sparse_init`) where it
 solves, which reads the frame's image back to the host every frame.
+`Tracking.model_view_down` pairs a model pyramid rendered at 1/down with
+the frame pyramid from level log2(down) on; under `System.mesh_devices`
+each GN iteration is built over row shards on every device.
 """
 from __future__ import annotations
 
@@ -40,10 +43,52 @@ class TrackerConfig(NamedTuple):
     commit_min_count: int = 0
     commit_rms_m: float = 0.005
     min_valid_frac: float = 0.02
+    # stop a level's GN iterations once an iteration converged and moved the
+    # pose by less than early_exit_factor * dx_threshold (see the JAX class)
+    early_exit: bool = False
+    early_exit_factor: float = 0.05
 
 
-def dense_track(pyr_model, pyr_frame, init_delta: torch.Tensor, cfg: TrackerConfig):
+# GN iterations run under `TrackerConfig.early_exit` since the last reset (a
+# host count; without the early exit every level runs all its iterations)
+EARLY_EXIT_ITERATIONS = {"run": 0}
+
+
+def _level_shards(model_lvl, frame_lvl, stride: int, devices):
+    """(constraint grid, resampling pack) of one level for each device:
+    the whole grid on one device, or under a mesh (`devices`) each
+    device's contiguous block of strided rows with a copy of the frame's
+    pack (pixel-sharded tracking)."""
+    grid = gn.constraint_grid(model_lvl, frame_lvl, stride)
+    pack = gn.sampling_pack(frame_lvl)
+    if not devices or len(devices) == 1 and torch.device(devices[0]) == pack.device:
+        return [(grid, pack)]
+    n = len(devices)
+    hs = grid.disp.shape[0]
+    bounds = [hs * i // n for i in range(n + 1)]
+    return [(gn.shard_rows(grid, k0, k1, d), pack.to(d, non_blocking=True))
+            for d, k0, k1 in zip(devices, bounds, bounds[1:])]
+
+
+def _sum_on(dev, xs):
+    """x0 + x1 + ... on `dev`, in list order (a fixed reduction order)."""
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x.to(dev, non_blocking=True)
+    return out
+
+
+def dense_track(pyr_model, pyr_frame, init_delta: torch.Tensor, cfg: TrackerConfig, devices=None):
     """Full coarse-to-fine GN optimization, coarse (level L-1) to fine (0).
+
+    With `cfg.early_exit` a level stops after the first iteration that
+    converged and moved the pose by less than `early_exit_factor *
+    dx_threshold` (the flag resets at every level, and is read back after
+    every iteration); the result is the last iteration's that ran.
+    `devices` (a mesh, `parallel.mesh.make_mesh`) shards each level's
+    constraint rows over the devices; the partial normal equations are
+    summed on the first, in device order, every iteration, and the pose
+    stays there.
 
     Returns (delta (4, 4), converged (bool tensor), icp_rms_m, icp_count)."""
     dev = init_delta.device
@@ -59,11 +104,13 @@ def dense_track(pyr_model, pyr_frame, init_delta: torch.Tensor, cfg: TrackerConf
                   else cfg.solver_stride)
         Hl, Wl = model_lvl.intensity.shape[:2]
         min_n = max(1.0, cfg.min_valid_frac * (Hl // stride) * (Wl // stride))
-        pack = gn.sampling_pack(frame_lvl)
+        shards = _level_shards(model_lvl, frame_lvl, stride, devices)
         for _ in range(cfg.pyramid_iters[l]):
-            A, b, n, r2_icp, n_icp = gn.build_normal_equations(
-                model_lvl, frame_lvl, delta, cfg.angle_threshold, cfg.distance_threshold,
-                cfg.use_rgb, cfg.rgb_weight, stride=stride, pack=pack)
+            parts = [gn.grid_normal_equations(grid, pack, delta.to(pack.device, non_blocking=True),
+                                              cfg.angle_threshold, cfg.distance_threshold, cfg.use_rgb,
+                                              cfg.rgb_weight)
+                     for grid, pack in shards]
+            A, b, n, r2_icp, n_icp = (_sum_on(dev, [p[i] for p in parts]) for i in range(5))
             dx = gn.solve_gn(A, b, cfg.lm_damping)
             delta = lie.update_transform(delta, dx)
             residual_est = torch.linalg.vector_norm(b) / torch.sqrt(torch.clamp(n, min=1.0))
@@ -71,8 +118,12 @@ def dense_track(pyr_model, pyr_frame, init_delta: torch.Tensor, cfg: TrackerConf
             last_rms = torch.sqrt(r2_icp / torch.clamp(n_icp, min=1.0))
             last_n = n_icp
             # n > min_n: an empty solve must not count as converged
-            converged = converged | ((residual_est < cfg.residual_thres)
-                                     & (dx_norm < cfg.dx_threshold) & (n > min_n))
+            conv_i = (residual_est < cfg.residual_thres) & (dx_norm < cfg.dx_threshold) & (n > min_n)
+            converged = converged | conv_i
+            if cfg.early_exit:
+                EARLY_EXIT_ITERATIONS["run"] += 1
+                if bool(conv_i & (dx_norm < cfg.early_exit_factor * cfg.dx_threshold)):
+                    break
     return delta, converged, last_rms, last_n
 
 
@@ -83,10 +134,10 @@ def _motion_delta(prev_w2c, prev_prev_w2c, damping: float):
     return lie.se3_to_SE3(damping * xi)
 
 
-def dense_track_pose(pyr_model, pyr_frame, seed_delta, prev_transform, cfg: TrackerConfig):
+def dense_track_pose(pyr_model, pyr_frame, seed_delta, prev_transform, cfg: TrackerConfig, devices=None):
     """`dense_track` + on-device commit: returns (new w2c, committed, rms,
     n_icp); the commit is a select, no host readback."""
-    delta, converged, rms, n_icp = dense_track(pyr_model, pyr_frame, seed_delta, cfg)
+    delta, converged, rms, n_icp = dense_track(pyr_model, pyr_frame, seed_delta, cfg, devices)
     committed = converged
     if cfg.commit_min_count > 0:
         committed = committed | ((rms < cfg.commit_rms_m) & (n_icp >= cfg.commit_min_count))
@@ -104,12 +155,15 @@ class Tracker:
     def __init__(self, cfg, device):
         t = cfg.Tracking
         self.device = torch.device(device)
-        if int(cfg.System.get("mesh_devices", 0)) >= 1:
-            raise NotImplementedError("the port has no multi-device tracking (System.mesh_devices)")
-        if int(t.get("model_view_down", 1)) != 1:
-            raise NotImplementedError("the port renders the model view at full size (model_view_down 1)")
-        if bool(t.get("early_exit", False)):
-            raise NotImplementedError("the port runs every GN iteration (Tracking.early_exit off)")
+        # pixel-sharded tracking under a mesh (System.mesh_devices; off with
+        # Tracking.shard_tracking false): each device builds the normal
+        # equations of its block of constraint rows
+        self.devices = None
+        mesh_devices = int(cfg.System.get("mesh_devices", 0))
+        if mesh_devices >= 1 and bool(t.get("shard_tracking", True)):
+            from eggfusion_tpu_torch.parallel.mesh import make_mesh
+
+            self.devices = make_mesh(mesh_devices, self.device)
         self.config = TrackerConfig(
             pyramid_level=int(t.pyramid_level),
             pyramid_iters=tuple(int(i) for i in t.pyramid_iters),
@@ -124,7 +178,16 @@ class Tracker:
             commit_min_count=int(t.get("commit_min_count", 0)),
             min_valid_frac=float(t.get("min_valid_frac", 0.02)),
             commit_rms_m=float(t.get("commit_rms_m", 0.005)),
+            early_exit=bool(t.get("early_exit", False)),
+            early_exit_factor=float(t.get("early_exit_factor", 0.05)),
         )
+        # model-view downsample (Tracking.model_view_down, a power of 2): the
+        # model pyramid's base is the 1/down view, so the frame pyramid is
+        # built `view_off` levels deeper and paired from level view_off on
+        down = int(t.get("model_view_down", 1))
+        if down < 1 or down & (down - 1):
+            raise ValueError(f"Tracking.model_view_down must be a power of 2, got {down}")
+        self.view_off = down.bit_length() - 1
         self.only_mapping = bool(cfg.System.only_mapping)
         self.use_motion_model = bool(t.get("use_motion_model", True))
         self.motion_damping = float(t.get("motion_damping", 0.5))
@@ -200,8 +263,8 @@ class Tracker:
         prev_transform = model_map["transform"]
         seed_delta = self._seed_delta(frame, prev_transform)
         curr, converged, rms, n_icp = dense_track_pose(
-            model_map["pyramid"], frame.pyramid, seed_delta, prev_transform,
-            self.config)
+            model_map["pyramid"], frame.pyramid[self.view_off:], seed_delta, prev_transform,
+            self.config, self.devices)
         frame.tracking_converged = converged  # device scalar
         if self.gate_residual_factor > 0:
             frame.tracking_map_ok = converged | (

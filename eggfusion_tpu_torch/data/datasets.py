@@ -406,7 +406,10 @@ def load_dataset(config, device, test: bool = False):
         raise NotImplementedError("dataset type 'kinect_live' (a live Azure Kinect camera) is not ported")
     else:
         raise ValueError(f"Unknown dataset type: {kind}")
-    ds.frame_nlevel = int(config.get("Tracking", {}).get("pyramid_level", 3))
+    # the frame pyramid's depth: extra levels when the model view renders
+    # downsampled (Tracking.model_view_down; see core.tracker)
+    t = config.get("Tracking", {})
+    ds.frame_nlevel = int(t.get("pyramid_level", 3)) + (int(t.get("model_view_down", 1)).bit_length() - 1)
     ds.bilateral_mode = str(config.get("System", {}).get("bilateral_mode", "exact"))
     if isinstance(ds, RGBDDataset) and bool(config.Dataset.get("preload", True)):
         ds.start_prefetch()

@@ -65,7 +65,7 @@ def run(cfg, max_frames: int | None = None, verbose: bool = False, resume: str |
     stage = on_stage or (lambda name, ef: None)
     t_start = time.perf_counter()
     for fid in range(start, n):
-        frame = build_frame(dataset, fid, preload, ef.device, nlevel=ef.nlevel)
+        frame = build_frame(dataset, fid, preload, ef.device, nlevel=ef.nlevel_frame)
         ef.reconstruct(frame)
         if fid == start:  # frame 0 carries the init burst: timed apart
             sync()

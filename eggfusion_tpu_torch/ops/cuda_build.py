@@ -100,7 +100,9 @@ def build(names=tuple(SIGNATURES), variants=((),)) -> dict:
 
 def load(name: str, defines=()) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu` built with `defines`,
-    building it if needed."""
+    building it if needed. It is built and loaded once per process and
+    serves every GPU: the CUDA runtime keeps a copy of its kernels per
+    device context, and the wrappers launch with the device current."""
     key = (name, tuple(defines))
     with _lock:
         lib = _libs.get(key)

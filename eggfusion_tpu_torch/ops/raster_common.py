@@ -21,6 +21,16 @@ ALPHA_EPS = 1.0 / 255.0
 MAX_ALPHA = 0.99
 
 
+def rotate(R: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """R @ x for a (3, 3) R and (3, N) columns, as separate elementwise
+    products and sums: each column's result is rounded the same whatever N
+    is. A matrix product is not: cuBLAS picks its kernel by the batch size,
+    so the same surfel would project a few ulps apart in maps of another
+    capacity or in a frustum-compacted prefix, and near-coplanar splats
+    would swap their depth order."""
+    return R[:, 0:1] * x[0:1] + R[:, 1:2] * x[1:2] + R[:, 2:3] * x[2:3]
+
+
 class ProjectedSurfels(NamedTuple):
     """TRANSPOSED (k, N) per-surfel screen-space quantities."""
 
@@ -44,7 +54,7 @@ def project_surfels(params: dict, w2c: torch.Tensor, intr: torch.Tensor, width: 
     t = w2c[:3, 3]
     fx, fy, cx, cy = intr[0], intr[1], intr[2], intr[3]
 
-    p_cam = R @ xyz + t[:, None]  # (3, N)
+    p_cam = rotate(R, xyz) + t[:, None]  # (3, N)
     px, py, z = p_cam[0], p_cam[1], p_cam[2]
     z_safe = torch.where(torch.abs(z) < 1e-8, torch.full_like(z, 1e-8), z)
     u = fx * px / z_safe + cx
@@ -54,8 +64,8 @@ def project_surfels(params: dict, w2c: torch.Tensor, intr: torch.Tensor, width: 
     # tangent disk axes in camera frame: columns 0/1 of R(q), scaled
     Rs = tf.build_rotation_t(params["rotations"])  # (3, 3, N)
     s = params["scales"]
-    tu = R @ (Rs[:, 0] * s[0])
-    tv = R @ (Rs[:, 1] * s[1])
+    tu = rotate(R, Rs[:, 0] * s[0])
+    tv = rotate(R, Rs[:, 1] * s[1])
 
     # A surfel at or behind the near plane is never rendered (`valid` below),
     # but within ~1e-4 m of the camera plane its covariance overflows
@@ -93,7 +103,7 @@ def project_surfels(params: dict, w2c: torch.Tensor, intr: torch.Tensor, width: 
     else:  # geometry-only render: skip the SH evaluation entirely
         color = torch.zeros_like(xyz)
 
-    normal_cam = R @ params["normal"]
+    normal_cam = rotate(R, params["normal"])
     # orient normals toward the camera (surfels are two-sided disks)
     flip = torch.sign(-torch.sum(normal_cam * p_cam, dim=0))
     flip = torch.where(flip == 0, torch.ones_like(flip), flip)

@@ -24,6 +24,7 @@ sub-column's own slot count (the JAX module's EXIT_MODE "count").
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -197,6 +198,37 @@ class Binning(NamedTuple):
     entry_sid: torch.Tensor  # (T, CAP) int64, rows interleave sub-columns
     counts: torch.Tensor  # (T, N_SUB) int32 per-sub-column slot counts
     back_map: torch.Tensor  # (N, K) int64
+
+
+# Frustum compaction of forward-only renders (the JAX module's
+# `_frustum_compact`): from this many slots up, a render with no binning and
+# no gradient first gathers the in-frustum surfels, nearest first, into a
+# prefix of half the capacity. Off by default (1 << 30), as in the JAX
+# module, whose TPU measurements found it slower end to end.
+FRUSTUM_COMPACT_MIN = int(os.environ.get("EGG_FRUSTUM_COMPACT_MIN", 1 << 30))
+
+
+def frustum_compact(params: dict, w2c, intr, width: int, height: int) -> dict:
+    """The render params of the first V = N // 2 surfels in the order of
+    (in the frustum and active first, then quantized depth), every field
+    gathered; the culled ones that fill the prefix come out inactive."""
+    xyz = params["xyz"]
+    V = xyz.shape[-1] // 2
+    p_cam = rc.rotate(w2c[:3, :3], xyz) + w2c[:3, 3][:, None]
+    z = p_cam[2]
+    z_safe = torch.where(torch.abs(z) < 1e-8, torch.full_like(z, 1e-8), z)
+    u = intr[0] * p_cam[0] / z_safe + intr[2]
+    v = intr[1] * p_cam[1] / z_safe + intr[3]
+    m = 2 * BIN_RADIUS_MAX_Y + 1  # binning clamps splat extents to ~32 px
+    inb = (z > rc.NEAR_Z) & (u > -m) & (u < width + m) & (v > -m) & (v < height + m)
+    keep = inb & params["active"]
+    qmax = (1 << DEPTH_BITS) - 1
+    qd = torch.clamp(z * (qmax / DEPTH_FAR), 0, qmax).to(torch.int64)
+    key = torch.where(keep, qd, torch.full_like(qd, 0xFFFFFFFF))
+    order = torch.sort(key, stable=True).indices[:V]  # stable: the JAX argsort's ties
+    out = {k: x.index_select(-1, order) for k, x in params.items()}
+    out["active"] = keep.index_select(0, order)
+    return out
 
 
 def tile_pixel_mask(keep: torch.Tensor, width: int, height: int) -> torch.Tensor:
@@ -463,23 +495,25 @@ def composite_fwd(entries, counts, intr, tx_tiles: int, cap: int, geom: bool = F
 def _launch_fwd(lib, entries, counts, intr, tx_tiles: int, cap: int, geom: bool):
     """Launch the forward kernel of the loaded library `lib` on checked CUDA
     inputs (the wrapper's launch; the checks launch a second build through
-    it)."""
+    it), with the inputs' device current: the kernel launches on that
+    device's current stream."""
     from eggfusion_tpu_torch.ops import cuda_build
 
     n_tiles, dev = entries.shape[0], entries.device
     hp = (n_tiles // tx_tiles) * TILE_H
     wp = tx_tiles * TILE_W
-    entries, counts, intr = entries.contiguous(), counts.contiguous(), intr.contiguous()
-    f32 = dict(dtype=torch.float32, device=dev)
-    dep, opa, T = (torch.empty((hp, wp), **f32) for _ in range(3))
-    rgb = nrm = None
-    if not geom:
-        rgb, nrm = torch.empty((3, hp, wp), **f32), torch.empty((3, hp, wp), **f32)
-    err = lib.egg_composite_fwd(
-        _ptr(counts), _ptr(intr), _ptr(entries),
-        _ptr(rgb) if rgb is not None else None, _ptr(nrm) if nrm is not None else None,
-        _ptr(dep), _ptr(opa), _ptr(T),
-        n_tiles, tx_tiles, cap, int(geom), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        entries, counts, intr = entries.contiguous(), counts.contiguous(), intr.contiguous()
+        f32 = dict(dtype=torch.float32, device=dev)
+        dep, opa, T = (torch.empty((hp, wp), **f32) for _ in range(3))
+        rgb = nrm = None
+        if not geom:
+            rgb, nrm = torch.empty((3, hp, wp), **f32), torch.empty((3, hp, wp), **f32)
+        err = lib.egg_composite_fwd(
+            _ptr(counts), _ptr(intr), _ptr(entries),
+            _ptr(rgb) if rgb is not None else None, _ptr(nrm) if nrm is not None else None,
+            _ptr(dep), _ptr(opa), _ptr(T),
+            n_tiles, tx_tiles, cap, int(geom), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"composite_fwd kernel launch failed: {cuda_build.error_string(err)}")
     return (dep, opa, T) if geom else (rgb, nrm, dep, opa, T)
@@ -517,13 +551,15 @@ def composite_bwd(entries, counts, intr, g_rgb, g_nrm, g_dep, g_opa, g_T, T_fin,
 def _launch_bwd(lib, entries, counts, intr, g_rgb, g_nrm, g_dep, g_opa, g_T, T_fin, tx_tiles: int, cap: int):
     """Launch the backward kernel of the loaded library `lib` on checked
     CUDA inputs (the wrapper's launch; the checks launch a second build
-    through it)."""
+    through it), with the inputs' device current: the kernel launches, and
+    its shared-memory limit is set, on that device."""
     from eggfusion_tpu_torch.ops import cuda_build
 
-    ins = [t.contiguous() for t in (counts, intr, entries, g_rgb, g_nrm, g_dep, g_opa, g_T, T_fin)]
-    d_entries = torch.zeros_like(entries)
-    err = lib.egg_composite_bwd(*[_ptr(t) for t in ins], _ptr(d_entries), entries.shape[0], tx_tiles, cap,
-                                torch.cuda.current_stream(entries.device).cuda_stream)
+    with torch.cuda.device(entries.device):
+        ins = [t.contiguous() for t in (counts, intr, entries, g_rgb, g_nrm, g_dep, g_opa, g_T, T_fin)]
+        d_entries = torch.zeros_like(entries)
+        err = lib.egg_composite_bwd(*[_ptr(t) for t in ins], _ptr(d_entries), entries.shape[0], tx_tiles, cap,
+                                    torch.cuda.current_stream(entries.device).cuda_stream)
     if err:
         raise RuntimeError(f"composite_bwd kernel launch failed: {cuda_build.error_string(err)}")
     return d_entries
@@ -561,13 +597,17 @@ def render_tile(params: dict, w2c: torch.Tensor, intr: torch.Tensor, width: int,
 
     `binning` reuses a `compute_binning` result; `geom_only` returns only
     {depth, opacity} through the geometry-only kernel; `need_grad=False`
-    skips building the gradient back-map; `tile_keep` ((n_tiles,) bool)
+    skips building the gradient back-map (and, from FRUSTUM_COMPACT_MIN
+    slots up without a binning, renders the `frustum_compact` prefix); `tile_keep` ((n_tiles,) bool)
     composites only the kept tiles; `with_occupancy` adds "max_occupancy",
     the true deepest sub-column candidate count."""
     assert cap % (N_SUB * _chunk_for(cap)) == 0, (
         f"cap must be a multiple of {N_SUB * _chunk_for(cap)} (sub-column slot chunks)")
     hp, wp, tx_tiles, ty_tiles = _grid(width, height)
     n_tiles = tx_tiles * ty_tiles
+
+    if not need_grad and binning is None and params["xyz"].shape[-1] >= FRUSTUM_COMPACT_MIN:
+        params = frustum_compact(params, w2c, intr, width, height)
 
     proj = rc.project_surfels(params, w2c, intr, width, height, sh_degree, need_color=not geom_only)
 

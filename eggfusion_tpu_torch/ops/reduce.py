@@ -8,6 +8,7 @@ x+1 neighbour), so one row gather returns two bilinear corners.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -66,16 +67,19 @@ def _sample_packed(pack: torch.Tensor, coords: torch.Tensor):
     return bil, near[..., 3:6], near[..., 6:9], near[..., 9] > 0.8
 
 
-def projective_warp(transform: torch.Tensor, disp: torch.Tensor, intr: torch.Tensor, stride: int = 1):
+def projective_warp(transform: torch.Tensor, disp: torch.Tensor, intr: torch.Tensor, stride: int = 1,
+                    row0: int = 0, full_hw: tuple[int, int] | None = None):
     """Dense projective warp + 2x6 SE(3) Jacobian; `disp` may be stride-
-    sliced, coords address the full-resolution target.
+    sliced, coords address the full-resolution target. A row shard of the
+    strided grid passes its first row `row0` (in strided rows) and the
+    unsharded grid's (H, W) = (Hs * stride, Ws * stride) as `full_hw`.
     Returns (warped_grid (H, W, 2) in [-1, 1], dxdxi (H, W, 2, 6))."""
     d = disp[..., 0] if disp.dim() == 3 else disp
     Hs, Ws = d.shape
-    H, W = Hs * stride, Ws * stride
+    H, W = full_hw if full_hw is not None else (Hs * stride, Ws * stride)
     fx, fy, cx, cy = intr[0], intr[1], intr[2], intr[3]
     ys, xs = torch.meshgrid(
-        torch.arange(Hs, dtype=d.dtype, device=d.device) * stride,
+        torch.arange(row0, row0 + Hs, dtype=d.dtype, device=d.device) * stride,
         torch.arange(Ws, dtype=d.dtype, device=d.device) * stride, indexing="ij")
     us = (xs - cx) / fx
     vs = (ys - cy) / fy
@@ -110,25 +114,64 @@ def solve_gn(A: torch.Tensor, b: torch.Tensor, lm: float = 1.0e-6) -> torch.Tens
     return torch.linalg.solve_ex(A, b.reshape(-1, 1))[0][:, 0]
 
 
+class ConstraintGrid(NamedTuple):
+    """The model side of one level's constraints on the strided grid, with
+    the frame's per-constraint masks: every input of a normal-equation
+    build but the frame's resampling pack. A row shard (`shard_rows`)
+    keeps the unsharded grid's size and its own first row."""
+
+    disp: torch.Tensor  # (Hs, Ws, 1)
+    vertex: torch.Tensor  # (Hs, Ws, 3)
+    normal: torch.Tensor  # (Hs, Ws, 3)
+    mask: torch.Tensor  # (Hs, Ws, 1) bool
+    intensity: torch.Tensor  # (Hs, Ws, 1)
+    frame_mask: torch.Tensor  # (Hs, Ws, 1) bool
+    frame_gradmag: torch.Tensor  # (Hs, Ws)
+    intr: torch.Tensor  # (4,)
+    stride: int
+    row0: int  # first strided row of this shard
+    full_hw: tuple  # (Hs * stride, Ws * stride) of the unsharded grid
+
+
+def constraint_grid(model: PyramidLevel, frame: PyramidLevel, stride: int = 1) -> ConstraintGrid:
+    """The strided constraint grid of one level (x[::stride, ::stride])."""
+    sl = (lambda x: decimate2d(x, stride)) if stride > 1 else (lambda x: x)
+    disp = sl(model.disp)
+    return ConstraintGrid(disp=disp, vertex=sl(model.vertex), normal=sl(model.normal), mask=sl(model.mask),
+                          intensity=sl(model.intensity), frame_mask=sl(frame.mask),
+                          frame_gradmag=sl(frame.grad[..., 2]), intr=model.intr, stride=stride, row0=0,
+                          full_hw=(disp.shape[0] * stride, disp.shape[1] * stride))
+
+
+def shard_rows(grid: ConstraintGrid, k0: int, k1: int, device) -> ConstraintGrid:
+    """Strided rows [k0, k1) of `grid` on `device`: model rows k * stride,
+    so the shards of a split of [0, Hs) cover the grid exactly."""
+    rows = lambda x: x[k0:k1].to(device, non_blocking=True)
+    return grid._replace(disp=rows(grid.disp), vertex=rows(grid.vertex), normal=rows(grid.normal),
+                         mask=rows(grid.mask), intensity=rows(grid.intensity),
+                         frame_mask=rows(grid.frame_mask), frame_gradmag=rows(grid.frame_gradmag),
+                         intr=grid.intr.to(device, non_blocking=True), row0=grid.row0 + k0)
+
+
 def build_normal_equations(model: PyramidLevel, frame: PyramidLevel, transform: torch.Tensor,
                            angle_thres_deg: float, dist_thres: float, use_rgb: bool,
                            rgb_weight: float, stride: int = 1, pack: torch.Tensor | None = None):
     """One GN build at one pyramid level: (A (6, 6), b (6,), valid count,
     icp residual-square sum, icp count), with the reference's gates."""
-    sl = (lambda x: decimate2d(x, stride)) if stride > 1 else (lambda x: x)
-    m_disp = sl(model.disp)
-    m_vert = sl(model.vertex)
-    m_norm = sl(model.normal)
-    m_mask = sl(model.mask)
-    m_int = sl(model.intensity)
-    f_mask_orig = sl(frame.mask)
-    f_gradmag = sl(frame.grad[..., 2])
-
-    coords, Jc = projective_warp(transform, m_disp, model.intr, stride)
-    c = coords.reshape(-1, 2)
-
     if pack is None:
         pack = sampling_pack(frame)
+    return grid_normal_equations(constraint_grid(model, frame, stride), pack, transform, angle_thres_deg,
+                                 dist_thres, use_rgb, rgb_weight)
+
+
+def grid_normal_equations(grid: ConstraintGrid, pack: torch.Tensor, transform: torch.Tensor,
+                          angle_thres_deg: float, dist_thres: float, use_rgb: bool, rgb_weight: float):
+    """`build_normal_equations` over a constraint grid or a row shard of
+    one; the partial sums of a split add up to the whole grid's."""
+    m_vert, m_norm, m_mask, m_int = grid.vertex, grid.normal, grid.mask, grid.intensity
+    f_mask_orig, f_gradmag = grid.frame_mask, grid.frame_gradmag
+    coords, Jc = projective_warp(transform, grid.disp, grid.intr, grid.stride, grid.row0, grid.full_hw)
+    c = coords.reshape(-1, 2)
     bil, vcurr3, ncurr3, mwarp = _sample_packed(pack, coords)
     vcurr = vcurr3.reshape(-1, 3)
     ncurr = ncurr3.reshape(-1, 3)

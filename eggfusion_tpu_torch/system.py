@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from eggfusion_tpu_torch.core import surfels as sf
-from eggfusion_tpu_torch.core.mapper import Mapping
+from eggfusion_tpu_torch.core.mapper import KEEP_MODEL_MAP, Mapping
 from eggfusion_tpu_torch.core.renderer import Renderer
 from eggfusion_tpu_torch.core.tracker import Tracker, dense_track
 from eggfusion_tpu_torch.geometry import transforms as tf
@@ -76,9 +76,15 @@ def preprocess_frame_map(color, depth, vmap, nmap, mask, intr, w2c, reco_normal_
 
 def postprocess_model_map(rendered: dict, frame_map: dict, intr, w2c, reco_normal_thres: float,
                           reco_depth_thres: float, reco_opacity_thres: float, depth_min: float,
-                          depth_max: float, nlevel: int, bilateral: str = "exact"):
+                          depth_max: float, nlevel: int, down: int = 1, bilateral: str = "exact"):
     """Consistency masks + fill-in from the frame + the next frame's
-    tracking pyramid."""
+    tracking pyramid. `down` > 1 (Tracking.model_view_down): the rendered
+    maps are at 1/down resolution; the frame's maps are subsampled
+    [::down, ::down] to match and the intrinsics divided by `down`."""
+    if down > 1:
+        frame_map = {k: frame_map[k][::down, ::down]
+                     for k in ("normal_map_c", "depth_map", "color_map", "geo_mask")}
+        intr = intr / down
     n1 = frame_map["normal_map_c"]
     n2 = rendered["render_normal"]
     cos = torch.sum(n1 * n2, dim=-1) / (
@@ -127,6 +133,13 @@ class EGGFusion:
         self.depth_range_min = float(s.depth_range_min)
         self.depth_range_max = float(s.depth_range_max)
         self.nlevel = int(cfg.Tracking.pyramid_level)
+        # model-view downsample (Tracking.model_view_down): the tracking and
+        # spawn model view renders at 1/down; frames build `view_off` extra
+        # pyramid levels so the tracker pairs the model pyramid with the
+        # frame pyramid an octave (or two) down
+        self.mv_down = int(cfg.Tracking.get("model_view_down", 1))
+        self.view_off = self.tracker.view_off
+        self.nlevel_frame = self.nlevel + self.view_off
         self.bilateral = str(s.get("bilateral_mode", "exact"))
         self.traj = {"ts": [], "ref": [], "est": []}
         self.metrics = []
@@ -149,8 +162,9 @@ class EGGFusion:
         """A tracking model map (render + pyramid) at an arbitrary pose: the
         re-anchor of recovery and resume."""
         intr = CameraIntrinsics.from_calibration(self.cfg.Dataset.Calibration)
-        ia = intr.as_tensor(self.device)
-        out = self.mapper.render_model(self.mapper.surfels, w2c, ia, intr.width, intr.height)
+        d = self.mv_down
+        ia = intr.as_tensor(self.device) / d
+        out = self.mapper.render_model(self.mapper.surfels, w2c, ia, intr.width // d, intr.height // d)
         opa = out["opacity"] > self.reco_opacity_thres
         pyramid = build_pyramid(out["color"], out["depth"], opa.to(torch.float32), ia, nlevel=self.nlevel)
         return {"transform": w2c, "pyramid": pyramid}
@@ -167,7 +181,7 @@ class EGGFusion:
         cfg = self.tracker.config
         L = cfg.pyramid_level
         pm = (self.model_map["pyramid"][L - 1],)
-        pf = (frame.pyramid[L - 1],)
+        pf = (frame.pyramid[L - 1 + self.view_off],)
         coarse_cfg = cfg._replace(pyramid_level=1, pyramid_iters=(6,), solver_stride_fine=0)
 
         def rot(axis, deg):
@@ -186,7 +200,7 @@ class EGGFusion:
         n_conv = 0
         for axis, deg in hyps:
             seed = torch.as_tensor(rot(axis, deg), device=self.device)
-            delta, conv, rms, n_icp = dense_track(pm, pf, seed, coarse_cfg)
+            delta, conv, rms, n_icp = dense_track(pm, pf, seed, coarse_cfg, self.tracker.devices)
             ok = bool(conv) or (cfg.commit_min_count > 0 and float(rms) < cfg.commit_rms_m
                                 and float(n_icp) >= cfg.commit_min_count)
             if ok:
@@ -248,7 +262,9 @@ class EGGFusion:
             frame, self.frame_map,
             fail_streak=max(self.tracker._fail_streak, self.tracker.chronic_fails))
         t2 = _time.perf_counter()
-        if model_map is not None:
+        if isinstance(model_map, str) and model_map == KEEP_MODEL_MAP:
+            pass  # settled fuse-only frame: track against the previous model view
+        elif model_map is not None:
             self.model_map = model_map
         else:
             # optimization frame: render AFTER the window optimization
@@ -268,6 +284,8 @@ class EGGFusion:
             "capacity": self.mapper.surfels.capacity,
             "opt_steps": self.mapper.opt_steps_total,
         }
+        if self.mapper.settled_skip:
+            rec["render_skips"] = self.mapper.render_skips
         fs = self.mapper.fusion_stats
         if fs:
             t_last = next(reversed(fs))
@@ -287,17 +305,19 @@ class EGGFusion:
             frame.w2c_matrix(), self.reco_normal_thres)
 
     def postprocess(self, frame) -> None:
-        """Render the model at the frame's pose and build the next tracking
-        model map."""
+        """Render the model at the frame's pose (at 1/model_view_down) and
+        build the next tracking model map."""
+        d = self.mv_down
         with torch.no_grad():
             out = self.renderer.render_at(sf.render_params(self.mapper.surfels), frame.w2c_matrix(),
-                                          frame.intr, frame.width, frame.height, need_grad=False)
+                                          frame.intr / d if d > 1 else frame.intr, frame.width // d,
+                                          frame.height // d, need_grad=False)
             rendered = {"render_color": out["color"], "render_depth": out["depth"],
                         "render_normal": out["normal"], "render_opacity": out["opacity"]}
             self.model_map = postprocess_model_map(
                 rendered, self.frame_map, frame.intr, frame.w2c_matrix(), self.reco_normal_thres,
                 self.reco_depth_thres, self.reco_opacity_thres, self.depth_range_min,
-                self.depth_range_max, self.nlevel, bilateral=self.bilateral)
+                self.depth_range_max, self.nlevel, down=d, bilateral=self.bilateral)
 
     def append_trajectory(self, frame) -> None:
         # the estimate stays a device handle; `_traj_np` converts in bulk

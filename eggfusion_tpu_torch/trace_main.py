@@ -40,7 +40,7 @@ def main(argv=None) -> dict:
     dataset = load_dataset(cfg, ef.device)
 
     def step(fid):
-        ef.reconstruct(build_frame(dataset, fid, False, ef.device, nlevel=ef.nlevel))
+        ef.reconstruct(build_frame(dataset, fid, False, ef.device, nlevel=ef.nlevel_frame))
 
     # warm-up, then an untimed-by-profiler half (frame rate), then a traced
     # half (device time: the profiler slows the host, not the kernels)

@@ -147,3 +147,21 @@ def test_wrapper_rejects_bad_inputs(cuda):
     imgs = [torch.zeros(s, device=cuda) for s in ((3, 32, 128), (3, 32, 128)) + ((32, 128),) * 4]
     with pytest.raises(ValueError):
         rt.composite_bwd(big, counts.to(cuda)[:1], intr.to(cuda), *imgs, 1, 4096)
+
+
+def test_kernels_on_the_last_gpu(cuda):
+    """The wrappers launch on the device of their inputs: forward (both
+    variants) and backward on the last visible GPU, with another GPU
+    current, against the plain versions."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two GPUs: the launch device must differ from the current one")
+    last = torch.device("cuda", n - 1)
+    torch.cuda.set_device(0)
+    cap = 1024
+    entries, counts, intr, tx = random_slab(cap, seed=9)
+    for geom in (False, True):
+        _check_forward(last, entries, counts, intr, tx, cap, geom)
+    d_k = _check_backward(last, entries, counts, intr, tx, cap)
+    assert torch.isfinite(d_k).all()
+    assert torch.cuda.current_device() == 0

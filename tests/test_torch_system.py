@@ -290,6 +290,7 @@ def test_package_imports_without_jax():
         "import eggfusion_tpu_torch.ops.raster_tile, eggfusion_tpu_torch.convert\n"
         "import eggfusion_tpu_torch.io.ply, eggfusion_tpu_torch.io.checkpoint, eggfusion_tpu_torch.utils.eval\n"
         "import eggfusion_tpu_torch.native.sparse, eggfusion_tpu_torch.core.reloc\n"
+        "import eggfusion_tpu_torch.parallel.mesh\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'eggfusion_tpu.'))"
         " or m == 'eggfusion_tpu']\n"
         "assert not bad, bad\n"
