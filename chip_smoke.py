@@ -99,6 +99,23 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               one GPU the line says so); fails unless ATE < 1 cm and batched
               steps ran. `python3 chip_smoke.py --phase mesh` runs the build
               and the multi-GPU part alone.
+ 10. graphs — the compile layer (`eggfusion_tpu_torch/utils/graphs.py`):
+              two 24-frame runs of the slice configuration from the same
+              seed, eager (`EGGFusion(graphs=False)`) and on CUDA graphs
+              (the default), whose trajectories and final maps must agree bit
+              for bit; one replay of each captured program (tracking, frame,
+              map update, opt step) against an eager call on the same inputs,
+              bit for bit; host launches and device kernels per frame
+              (`torch.profiler`, 3 more frames), ms per frame and FPS after
+              frame 0, capture seconds per program and pool bytes per rung;
+              then one line of `bench_torch.main()` at its default workload,
+              which must capture no graph in its timed frames, and the
+              memory `warmup` holds with `System.precompile_ladder` on that
+              workload. `python3 chip_smoke.py --phase graphs` runs the
+              build and this phase alone.
+Every phase runs on CUDA graphs wherever its path is captured (the system's
+default); the launch counts add each graph's kernel launches at every
+replay, so they count real launches.
 After phase 3 ("frustum"), one forward render of the main path's final map
 through the frustum compaction (`raster_tile.frustum_compact`) against the
 uncompacted render of the surfels it keeps and against the full render,
@@ -109,6 +126,7 @@ before the last line. Needs no network; JAX is not imported.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -117,6 +135,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 
@@ -548,7 +567,8 @@ def drive(cfglib, torch, n_frames: int, burst: bool, final_global_opt: bool = Fa
            "frame_ms": [round(t, 3) for t in total], "track_ms": [round(t, 3) for t in track],
            "ate_cm": ate, "active_surfels": n_active, "opt_steps": frames[-1]["opt_steps"],
            "launches": launches, "recoveries": len(ef.metrics) - len(frames),
-           "model_cap_switches": ef.mapper.cap_switches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "model_cap_switches": ef.mapper.cap_switches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "graph_captures": ef.programs.captures(), "warmup_s": ef.warmup_s}
     emit(out)
     mm = ef.model_map
     if not all(torch.isfinite(mm[k]).all() for k in ("rendered_color", "rendered_depth")):
@@ -952,6 +972,168 @@ def check_mesh(cfglib, torch, n_frames: int = 24, multi_only: bool = False) -> d
     return out
 
 
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                     "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def profiled_launches(torch, step, frames) -> dict:
+    """Launches per frame over `frames` (each run by `step`) under
+    `torch.profiler`: the host's launch calls (kernels, graphs, copies and
+    fills: `HOST_LAUNCH_CALLS`) and the kernels the device ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fid in frames:
+            step(fid)
+        torch.cuda.synchronize()
+    host = dev = 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            dev += e.count
+        elif e.key in HOST_LAUNCH_CALLS:
+            host += e.count
+    return {"host_launches_per_frame": host / len(frames), "device_kernels_per_frame": dev / len(frames)}
+
+
+def graphs_run(cfglib, torch, graphs, n_frames: int = 24, n_profiled: int = 3) -> tuple:
+    """`n_frames` of the slice configuration through `EGGFusion.reconstruct`
+    with `graphs` (None: CUDA graphs, the default; False: eager), after
+    `warmup`; then `n_profiled` more frames under the profiler. Returns the
+    record, the system, and the trajectory and map after `n_frames`."""
+    from eggfusion_tpu_torch.core.surfels import FIELDS
+    from eggfusion_tpu_torch.data.datasets import load_dataset
+    from eggfusion_tpu_torch.main import build_frame
+    from eggfusion_tpu_torch.ops import raster_tile as rt
+    from eggfusion_tpu_torch.system import EGGFusion
+
+    label = "eager" if graphs is False else "graphs"
+    cfg = cfglib.slice_config(n_frames + n_profiled, os.path.join(SMOKE_RUNS, f"graphs_{label}"))
+    ef = EGGFusion(cfg, graphs=graphs)
+    ds = ef.dataset = load_dataset(cfg, ef.device)
+
+    def step(fid):
+        ef.reconstruct(build_frame(ds, fid, False, ef.device, nlevel=ef.nlevel_frame, programs=ef.programs))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ef.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    captures_warmup = ef.programs.captures()
+    rt.reset_launch_counts()
+    t0 = time.perf_counter()
+    step(0)
+    torch.cuda.synchronize()
+    frame0_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for fid in range(1, n_frames):
+        step(fid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(rt.LAUNCHES)
+    traj = ef._traj_np("est")
+    fields = {f: getattr(ef.mapper.surfels, f).clone() for f in FIELDS}
+    captures_frames = ef.programs.captures() - captures_warmup
+    prof = profiled_launches(torch, step, range(n_frames, n_frames + n_profiled))
+    rec = {"label": label, "mode": ef.programs.mode, "frames": n_frames, "warmup_s": warmup_s,
+           "captures_warmup": captures_warmup, "captures_in_frames": captures_frames, "frame0_s": frame0_s,
+           "ms_per_frame_after_frame0": wall * 1e3 / (n_frames - 1), "fps_after_frame0": (n_frames - 1) / wall,
+           **prof, "launches": launches, "active_surfels": int(ef.mapper.surfels.num_active())}
+    return rec, ef, traj, fields
+
+
+def ladder_capture(torch) -> dict:
+    """`System.precompile_ladder` on `bench_torch.py`'s workload: the bytes
+    `warmup` holds after capturing the starting rung and every rung above
+    it (graph pools and empty maps by rung; allocated and reserved in all,
+    against a baseline taken with no other system alive), and its
+    seconds."""
+    import bench_torch
+    from eggfusion_tpu_torch.data.datasets import load_dataset
+    from eggfusion_tpu_torch.system import EGGFusion
+
+    cfg = bench_torch.bench_config(2, env={})
+    cfg.System.precompile_ladder = True
+    gc.collect()  # the earlier phases' systems (their programs hold cycles)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    ef = EGGFusion(cfg)
+    ef.dataset = load_dataset(cfg, ef.device)
+    t0 = time.perf_counter()
+    ef.warmup()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    pools: dict = {}
+    for st in ef.programs.stats().values():
+        for rung, b in st["pool_bytes"].items():
+            pools[rung] = pools.get(rung, 0) + b
+    maps = {str(c): sum(t.numel() * t.element_size() for t in vars(m).values())
+            for c, m in ef.mapper._rung_maps.items()}
+    out = {"start_capacity": ef.mapper.surfels.capacity, "rungs_ahead": sorted(ef.mapper._rung_maps),
+           "warmup_s": seconds, "captures": ef.programs.captures(), "pool_bytes_by_rung": pools,
+           "empty_map_bytes_by_rung": maps, "allocated_bytes": torch.cuda.memory_allocated() - base,
+           "reserved_bytes": torch.cuda.memory_reserved() - base_reserved}
+    del ef
+    return out
+
+
+def check_graphs(cfglib, torch) -> dict:
+    """Phase "graphs": the compile layer. Two 24-frame runs of the slice
+    configuration from the same seed, eager (`graphs=False`) and with CUDA
+    graphs (the default), whose trajectories and final maps must agree bit
+    for bit; one replay of each captured program against an eager call on
+    the same inputs, bit for bit; launches per frame (host and device), ms
+    per frame, capture seconds per program and pool bytes per rung; then one
+    line of `bench_torch.main()` at its default workload, which must
+    capture no graph in its timed frames; and what `warmup` holds with
+    `System.precompile_ladder` on that workload (`ladder_capture`)."""
+    from eggfusion_tpu_torch.core.surfels import FIELDS
+    from eggfusion_tpu_torch.utils.graphs import same_bits
+
+    eager, ef_e, traj_e, map_e = graphs_run(cfglib, torch, False)
+    del ef_e
+    rec, ef, traj_g, map_g = graphs_run(cfglib, torch, None)
+    traj_equal = traj_e.tobytes() == traj_g.tobytes()
+    differ = [f for f in FIELDS if not same_bits(map_e[f], map_g[f])]
+    stats = ef.programs.stats()
+    replay = {name: ef.programs.programs[name].check_replay() for name in ("track", "frame", "map_update",
+                                                                          "opt_step")}
+    pools: dict = {}
+    for st in stats.values():
+        for rung, b in st["pool_bytes"].items():
+            pools[rung] = pools.get(rung, 0) + b
+    out = {"phase": "graphs", "eager": eager, "graphs": rec, "trajectory_bit_equal": traj_equal,
+           "map_fields_differing": differ, "replay_vs_eager": replay,
+           "capture_s": {k: v["capture_s"] for k, v in stats.items()},
+           "captures": {k: v["captures"] for k, v in stats.items()},
+           "replays": {k: v["replays"] for k, v in stats.items()},
+           "pool_bytes_by_rung": pools,
+           "max_traj_diff": float(np.abs(traj_e - traj_g).max())}
+    emit(out)
+    del ef
+    import bench_torch
+
+    bench = bench_torch.main()
+    out["bench"] = bench
+    emit({"phase": "graphs_bench", **bench})
+    out["precompile_ladder"] = ladder_capture(torch)
+    emit({"phase": "graphs_ladder", **out["precompile_ladder"]})
+    if rec["mode"] != "graph" or rec["captures_warmup"] == 0:
+        fail(f"graphs: the default system ran no CUDA graph ({rec['mode']}, {rec['captures_warmup']} captures)")
+    if not traj_equal or differ:
+        fail(f"graphs: the graph run differs from the eager run (trajectory bit-equal {traj_equal}, "
+             f"map fields differing {differ})")
+    bad = {k: v for k, v in replay.items() if not (v["outputs_equal"] and v["state_equal"])}
+    if bad:
+        fail(f"graphs: a replay differs from its eager call: {bad}")
+    if not rec["host_launches_per_frame"] < eager["host_launches_per_frame"]:
+        fail("graphs: the graph run launches no fewer times per frame than the eager run")
+    if bench["captures_timed"]:
+        fail(f"graphs: bench_torch captured {bench['captures_timed']} graphs in its timed frames")
+    return out
+
+
 def check_frustum_compact(torch, ef) -> dict:
     """A compacted forward render (`raster_tile.frustum_compact`, on from
     any size) of the main path's final map at CAP 2048, both timed, held to
@@ -1251,7 +1433,9 @@ def check_tum(cfglib, torch, n_frames: int = 60, n_compare: int = 20) -> dict:
            "finish_s": ef.run_finish_s, "eval_s": ef.run_eval_s, "launches": launches, "map_finite": finite,
            "kernel_check": {k: {"max_rel_err": v["max_rel_err"], "band_held_values": v.get("band_held_values", 0),
                                 "pairs": v["pairs"]} for k, v in kernels.items() if isinstance(v, dict)},
-           "dense": dense, "steady_fps": compare, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "dense": dense, "steady_fps": compare, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "graph_captures": ef.programs.captures(),
+           "capture_s": sum(v["capture_s"] for v in ef.programs.stats().values())}
     emit(out)
     if not (ds.distorted and out["mask_valid_share"] < 1.0):
         fail("tum: the undistortion path is not live")
@@ -1307,6 +1491,12 @@ def main(argv: list[str]) -> None:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "ptxas": ptxas_usage(report), "blocks_per_sm": blocks})
 
+    if phases == ["graphs"]:
+        check_graphs(cfglib, torch)
+        print(gpu, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
     if phases == ["mesh"]:
         mesh = check_mesh(cfglib, torch, multi_only=True)
         print(gpu, flush=True)
@@ -1327,13 +1517,16 @@ def main(argv: list[str]) -> None:
     tum = check_tum(cfglib, torch)
     variants = check_variants(cfglib, torch, main_run["fps_after_frame0"])
     mesh = check_mesh(cfglib, torch)
+    graphs = check_graphs(cfglib, torch)
     by_path = {"main": main_stages["loop"], "finish": main_stages["finish"], "eval": main_stages["eval"],
                "burst": burst_stages["loop"], "recovery": recovery["launches"], "resume": resume["launches"],
                "tum": tum["launches"], "mvdown": variants["mvdown"]["launches"],
                "mvdown_cap4096": variants["mvdown_cap4096"]["launches"],
                "settled_skip": variants["settled_skip"]["launches"],
                "early_exit": variants["early_exit"]["launches"],
-               **{label: r["launches"] for label, r in mesh.items() if isinstance(r, dict)}}
+               **{label: r["launches"] for label, r in mesh.items() if isinstance(r, dict)},
+               "graphs_eager": graphs["eager"]["launches"], "graphs": graphs["graphs"]["launches"],
+               "bench": graphs["bench"]["launches"]}
 
     src = "eggfusion_tpu_torch/csrc/"
     rows = [
@@ -1355,7 +1548,8 @@ def main(argv: list[str]) -> None:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"gpu": gpu, "checks": checks, "adversarial": adversarial, "main": main_run,
                    "finish": finish, "burst": burst_run, "recovery": recovery, "resume": resume,
-                   "tum": tum, "variants": variants, "mesh": mesh, "frustum": frustum, "kernels": kernels},
+                   "tum": tum, "variants": variants, "mesh": mesh, "frustum": frustum, "graphs": graphs,
+                   "kernels": kernels},
                   f, indent=1)
     emit({"kernels": kernels})
     print(gpu, flush=True)
@@ -1364,4 +1558,14 @@ def main(argv: list[str]) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    try:
+        main(sys.argv[1:])
+    except Exception:
+        # A fault on the card (a device-side assert) prints its messages when
+        # the CUDA context is torn down at exit, after the traceback, and can
+        # bury it; leaving without that teardown keeps the traceback the last
+        # thing on stderr. The exit code is 1, as for any failed check.
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)

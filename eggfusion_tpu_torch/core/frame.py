@@ -3,7 +3,11 @@
 
 A `Frame` holds the GT pose (host numpy), the estimated pose (one (4, 4)
 device tensor), intrinsics, the bilateral-filtered metric depth and the
-tracking pyramid, all on the frame's device.
+tracking pyramid, all on the frame's device. With `programs`
+(`utils.graphs`) the preparation and the pyramid run as one program, whose
+outputs the next frame's preparation overwrites: a consumer that keeps a
+frame's maps past the next frame clones them (`core.mapper.KeyFrame`, the
+held-out views of `system.EGGFusion`).
 """
 from __future__ import annotations
 
@@ -31,12 +35,37 @@ def prepare_frame_inputs(color_u8, depth_raw, mask, depth_scale: float, bilatera
     return color, depth, mask
 
 
+def frame_inputs(color, depth, mask, intr, depth_scale: float, nlevel: int, bilateral: str,
+                 prefiltered: bool, filter_depth: bool):
+    """(color, depth, mask, pyramid) of a frame's device inputs: u8 color and
+    raw depth through `prepare_frame_inputs`, or (`prefiltered`) float color
+    and metric depth, bilateral-filtered with `filter_depth`."""
+    if prefiltered:
+        color = color.to(torch.float32)
+        depth = depth.to(torch.float32)
+        depth = depth if depth.dim() == 3 else depth[..., None]
+        if filter_depth:
+            depth = imops.bilateral(bilateral)(depth, 13, 0.03, 4.5)
+        mask = mask.to(torch.float32)
+        mask = mask if mask.dim() == 3 else mask[..., None]
+    else:
+        color, depth, mask = prepare_frame_inputs(color, depth, mask, depth_scale, bilateral)
+    return color, depth, mask, build_pyramid(color, depth, mask, intr, nlevel=nlevel, bilateral=bilateral)
+
+
+def _frame_program(_state, x, **static):
+    return frame_inputs(*x, **static)
+
+
 class Frame:
-    """Frame on a device: `.color`, `.depth`, `.mask`, `.pyramid` tensors."""
+    """Frame on a device: `.color`, `.depth`, `.mask`, `.pyramid` tensors.
+    `programs` (a `utils.graphs.Programs`) runs the preparation as its
+    "frame" program."""
 
     def __init__(self, uid: int, ts: float, color_u8, depth_raw, mask, gt_pose_w2c: np.ndarray,
                  intr: CameraIntrinsics, depth_scale: float, device, nlevel: int = 3,
-                 prefiltered: bool = False, filter_depth: bool = False, bilateral: str = "exact"):
+                 prefiltered: bool = False, filter_depth: bool = False, bilateral: str = "exact",
+                 programs=None):
         self.uid = uid
         self.ts = float(ts)
         self.device = torch.device(device)
@@ -48,23 +77,16 @@ class Frame:
         self._gt_w2c_dev = None
         to = lambda x: torch.as_tensor(x, device=self.device)
 
-        if prefiltered:
-            # inputs already float color / metric depth
-            self.color = to(color_u8).to(torch.float32)
-            d = to(depth_raw).to(torch.float32)
-            d = d if d.dim() == 3 else d[..., None]
-            if filter_depth:
-                d = imops.bilateral(bilateral)(d, 13, 0.03, 4.5)
-            self.depth = d
-            m = to(mask).to(torch.float32)
-            self.mask = m if m.dim() == 3 else m[..., None]
+        if isinstance(depth_raw, np.ndarray) and depth_raw.dtype == np.uint16:
+            depth_raw = depth_raw.astype(np.int32)  # exact; CUDA has few uint16 operations
+        x = (to(color_u8), to(depth_raw), to(mask), self.intr)
+        static = dict(depth_scale=float(depth_scale), nlevel=nlevel, bilateral=bilateral,
+                      prefiltered=prefiltered, filter_depth=filter_depth)
+        if programs is None:
+            out = frame_inputs(*x, **static)
         else:
-            if isinstance(depth_raw, np.ndarray) and depth_raw.dtype == np.uint16:
-                depth_raw = depth_raw.astype(np.int32)  # exact; CUDA has few uint16 operations
-            self.color, self.depth, self.mask = prepare_frame_inputs(
-                to(color_u8), to(depth_raw), to(mask), float(depth_scale), bilateral)
-        self.pyramid = build_pyramid(self.color, self.depth, self.mask, self.intr, nlevel=nlevel,
-                                     bilateral=bilateral)
+            out = programs.program("frame", _frame_program)(static, None, x)
+        self.color, self.depth, self.mask, self.pyramid = out
 
     def update_transform_gt(self) -> None:
         """Commit the GT pose as the estimate (frame 0 / only_mapping)."""

@@ -13,10 +13,17 @@ schedules, the window-batched step across devices (`System.mesh_devices`,
 full model render of the evaluations.
 
 The capacity ladder makes the same decisions as the JAX module's, from the
-same lagged count readbacks. What there exists only to hide XLA compiles
-(background compile campaigns, per-rung program warmup) has no
-counterpart: every rung is ready, as the JAX module reports on the CPU, and
-growing or shrinking the map is a buffer reallocation.
+same lagged count readbacks. The JAX module's programs (`map_update`,
+`opt_step`, `bin_cache`, `render_model`) run through the system's program
+cache (`utils.graphs`): on CUDA one captured graph per key and rung, the
+map and the Adam moments their state, updated in place in one set of
+buffers per rung. A rung's programs are captured when the map first
+stands on it (`capture_rung`, the JAX module's bucket compile, done inline:
+a capture takes milliseconds), or ahead of it by `precompile_ladder`;
+leaving a rung drops its graphs and pools. Map maintenance (prune and
+compact) stays eager and writes its result back into the same buffers.
+The spawn and tile-subset draws are made outside the programs and passed
+in.
 
 Device scalars the host needs (fusion stats, losses, pose deltas, map
 counts) are copied asynchronously and read `count_lag` frames later, as in
@@ -25,6 +32,7 @@ donates it.
 """
 from __future__ import annotations
 
+import dataclasses
 from collections import deque
 from typing import NamedTuple
 
@@ -35,6 +43,7 @@ from eggfusion_tpu_torch.core import surfels as sf
 from eggfusion_tpu_torch.ops import fusion
 from eggfusion_tpu_torch.ops import raster_tile as rt
 from eggfusion_tpu_torch.utils.device import HostReadback
+from eggfusion_tpu_torch.utils.graphs import Programs
 
 
 class MapperConfig(NamedTuple):
@@ -202,9 +211,11 @@ class RandomSource:
 
 
 class KeyFrame:
-    """Snapshot of a frame and its maps. `storage` "device" keeps the maps
-    on the frame's device; "host" (`System.keyframe_storage: host`, for long
-    sequences) keeps numpy copies that `device_maps()` uploads on demand."""
+    """Snapshot of a frame and its maps. `storage` "device" keeps copies of
+    the maps on the frame's device (the frame's own belong to the programs
+    that made them, whose next call overwrites them); "host"
+    (`System.keyframe_storage: host`, for long sequences) keeps numpy copies
+    that `device_maps()` uploads on demand."""
 
     def __init__(self, frame, frame_map: dict, time: int, fid: int, storage: str = "device"):
         self.fid = fid
@@ -222,7 +233,8 @@ class KeyFrame:
         }
         self.storage = storage
         self.device = frame.intr.device
-        self.maps = {k: v.cpu().numpy() for k, v in maps.items()} if storage == "host" else maps
+        self.maps = ({k: v.cpu().numpy() for k, v in maps.items()} if storage == "host"
+                     else {k: v.clone() for k, v in maps.items()})
 
     def device_maps(self) -> dict:
         if self.storage == "host":
@@ -298,9 +310,10 @@ def capacity_ladder(max_capacity: int, factor: float = 1.4, coarse_at: int = 524
 
 
 class Mapping:
-    """Mapping orchestrator."""
+    """Mapping orchestrator. `programs` (a `utils.graphs.Programs`, eager
+    when None) runs the per-frame programs."""
 
-    def __init__(self, cfg, renderer, device, random_source=None):
+    def __init__(self, cfg, renderer, device, random_source=None, programs=None):
         m = cfg.Mapping
         self.device = torch.device(device)
         H = int(cfg.Dataset.Calibration.height)
@@ -453,19 +466,33 @@ class Mapping:
         self.time = 0
         self.random = random_source or RandomSource(int(cfg.System.get("seed", 0)), self.device)
         self.use_tile_subset = (self.mcfg.opt_tile_fraction < 1.0 and self.renderer.backend == "pallas")
+        # the program cache: the per-frame programs, the rungs whose programs
+        # are captured, the Adam buffers of each (schedule, rung) and the maps
+        # `precompile_ladder` allocated ahead for the rungs above
+        self.programs = programs or Programs(self.device, graphs=False)
+        self._p_update = self.programs.program("map_update", self._map_update_program)
+        self._p_opt = self.programs.program("opt_step", self._opt_step_program)
+        self._p_bin = self.programs.program("bin_cache", self._bin_cache_program)
+        self._p_render = self.programs.program("render_model", self._render_program)
+        self._captured_rungs: set = set()
+        self._adam_bufs: dict = {}  # (schedule, capacity) -> (moments, step)
+        self._rung_maps: dict = {}  # capacity -> empty SurfelMap
+        self.capture_hooks: list = []  # hook(s, frame_map, w2c, intr, width, height)
 
     # ---------------------------------------------------------- programs --
 
-    def map_update(self, s: sf.SurfelMap, frame_map: dict, w2c, intr, time: int, width: int,
+    def map_update(self, s: sf.SurfelMap, frame_map: dict, w2c, intr, time, width: int,
                    height: int, first: bool, full_post: bool, model_cap: int = 0, conv=None,
-                   down: int = 1, do_render: bool = True):
+                   down: int = 1, do_render: bool = True, spawn_u=None):
         """Per-frame map update: fuse, render the model once at 1/`down`
         resolution (full with `full_post`, else geometry-only), then spawn
         where the model is thin or in front of the measurement (the mask
         computed on the 1/down grid and nearest-upsampled; fusion stays
         full-res). `do_render=False` is the settled fuse-only frame: no
-        render, no spawn. Returns (s, model_map or None, stats_vec (3,)
-        int32 [fused, error, occupancy or -1] or None)."""
+        render, no spawn. `time` is the frame time (an int or an int32
+        device scalar); `spawn_u` the frame's spawn uniforms, drawn here
+        when None. Returns (s, model_map or None, stats_vec (3,) int32
+        [fused, error, occupancy or -1] or None)."""
         from eggfusion_tpu_torch.system import postprocess_model_map
 
         mcfg, scfg, sys_cfg = self.mcfg, self.scfg, self._system_cfg
@@ -513,15 +540,16 @@ class Mapping:
             sample_mask = depth > 0
             ratio = mcfg.sample_ratio_init
             cap = mcfg.spawn_cap_init
-        batch = self._sample_spawn(frame_map, sample_mask[..., 0], ratio, cap, time, intr)
+        batch = self._sample_spawn(frame_map, sample_mask[..., 0], ratio, cap, time, intr, spawn_u)
         s = sf.append_surfels(s, batch, time, scfg.init_opacity)
         s = sf.update_stability(s, mcfg.stable_confidence)
         return s, model_map, stats_vec
 
-    def _sample_spawn(self, frame_map, sample_mask, ratio: float, cap: int, time: int, intr):
+    def _sample_spawn(self, frame_map, sample_mask, ratio: float, cap: int, time, intr, u=None):
         """Bernoulli per-pixel spawn selection at probability `ratio` with a
         border exclusion, compacted to at most one pixel per group of G
-        consecutive pixels (the max-u selected one) into a SpawnBatch."""
+        consecutive pixels (the max-u selected one) into a SpawnBatch. `u`:
+        the uniforms, drawn for `time` when None."""
         mcfg, scfg = self.mcfg, self.scfg
         depth = frame_map["depth_map"][..., 0]
         normal = frame_map["normal_map_w"]
@@ -532,7 +560,8 @@ class Mapping:
         invalid_normal = torch.all(normal == 0, dim=-1)
         mask = sample_mask & border & ~invalid_normal
 
-        u = self.random.spawn(time, H, W).to(self.device)
+        if u is None:
+            u = self.random.spawn(time, H, W).to(self.device)
         sel = mask & (u < ratio)
         HW = H * W
         G = -(-HW // cap)
@@ -560,11 +589,25 @@ class Mapping:
                  geo_snapshot: dict, lrs: dict, width: int, height: int, cache=None):
         """One render + loss + Adam step on one keyframe. The surfel fields
         are updated in place; returns (s, moments, step + 1, loss)."""
+        tile_u = self._tile_draw(width, height)
+        return self._opt_step_body(s, moments, step, kf, w2c, intr, geo_snapshot, lrs, width, height,
+                                   cache, tile_u)
+
+    def _tile_draw(self, width: int, height: int):
+        """The next step's tile-subset uniforms (None without a subset); the
+        host step counter advances."""
+        u = None
+        if self.use_tile_subset:
+            u = self.random.tiles(int(self._host_step), rt.n_tiles_static(width, height)).to(self.device)
+        self._host_step += 1
+        return u
+
+    def _opt_step_body(self, s, moments, step, kf, w2c, intr, geo_snapshot, lrs, width, height, cache, tile_u):
+        """`opt_step` given the tile-subset uniforms `tile_u`."""
         params = {k: getattr(s, k).detach().requires_grad_(True) for k in OPT_FIELDS}
         tile_keep = pix_mask = None
-        if self.use_tile_subset:
-            nt = rt.n_tiles_static(width, height)
-            tile_keep = self.random.tiles(int(self._host_step), nt).to(self.device) < self.mcfg.opt_tile_fraction
+        if tile_u is not None:
+            tile_keep = tile_u < self.mcfg.opt_tile_fraction
             pix_mask = rt.tile_pixel_mask(tile_keep, width, height)
         with torch.enable_grad():
             s2 = s.replace(**params)
@@ -578,7 +621,6 @@ class Mapping:
                                                moments, step, lrs)
             for k in OPT_FIELDS:
                 getattr(s, k).copy_(new_params[k])
-        self._host_step += 1
         return s, moments, step + 1, loss.detach()
 
     def render_model(self, s: sf.SurfelMap, w2c, intr, width: int, height: int) -> dict:
@@ -593,6 +635,153 @@ class Mapping:
         with torch.no_grad():
             return self.renderer.precompute_cache(sf.render_params(s), w2c, intr, width, height,
                                                   cap=self.renderer.opt_raster_cap)
+
+    # the program bodies: `fn(state, inputs, **static)` of `utils.graphs`;
+    # the map and the Adam state are written back into their own buffers
+
+    def _map_update_program(self, s, x, *, first, full_post, model_cap, down, do_render, width, height):
+        # a shallow copy: `map_update` rebinds fields of the map it is given
+        s2, model_map, stats_vec = self.map_update(
+            dataclasses.replace(s), x["frame_map"], x["w2c"], x["intr"], x["time"], width, height, first,
+            full_post, model_cap, x["conv"], down, do_render, x["spawn_u"])
+        sf.assign(s, s2)
+        return model_map, stats_vec
+
+    def _opt_step_program(self, st, x, *, width, height, lrs):
+        s, moments, step = st
+        _, new_moments, _, loss = self._opt_step_body(s, moments, step, x["kf"], x["w2c"], x["intr"], x["geo"],
+                                                      dict(lrs), width, height, x["cache"], x["tile_u"])
+        with torch.no_grad():
+            for k in OPT_FIELDS:
+                for buf, new in zip(moments[k], new_moments[k]):
+                    buf.copy_(new)
+            step.add_(1)
+        return loss
+
+    def _bin_cache_program(self, s, x, *, width, height):
+        return self.bin_cache(s, x["w2c"], x["intr"], width, height)
+
+    def _render_program(self, s, x, *, width, height):
+        return self.render_model(s, x["w2c"], x["intr"], width, height)
+
+    # the program calls
+
+    def _update_args(self, frame_map, w2c, intr, width, height, first, full_post, conv, do_render, model_cap):
+        static = dict(first=first, full_post=full_post, model_cap=model_cap, down=self.view_down,
+                      do_render=do_render, width=width, height=height)
+        spawn_u = None
+        if first or do_render:
+            spawn_u = self.random.spawn(self.time, height, width).to(self.device)
+        x = {"frame_map": frame_map, "w2c": w2c, "intr": intr,
+             "time": torch.full((), self.time, dtype=torch.int32, device=self.device),
+             "conv": conv, "spawn_u": spawn_u}
+        return static, x
+
+    def render(self, w2c, intr, width: int, height: int) -> dict:
+        """`render_model` of the current map through its program: the
+        outputs belong to the program (the next render overwrites them)."""
+        return self._p_render({"width": width, "height": height}, self.surfels, {"w2c": w2c, "intr": intr},
+                              rung=self.surfels.capacity)
+
+    def _binning(self, kf):
+        """`bin_cache` of the current map from keyframe `kf` through its
+        program (the program's outputs)."""
+        return self._p_bin({"width": kf.width, "height": kf.height}, self.surfels,
+                           {"w2c": kf.w2c, "intr": kf.intr}, rung=self.surfels.capacity)
+
+    def _adam_buffers(self, schedule: str, s=None):
+        """The persistent Adam state (moments, step) of `schedule` ("window":
+        the amortized steps; "batch": `_optimize`) at the capacity of map
+        `s` (default: the current map), allocated at its first request."""
+        s = self.surfels if s is None else s
+        key = (schedule, s.capacity)
+        buf = self._adam_bufs.get(key)
+        if buf is None:
+            buf = self._adam_bufs[key] = (_adam_init({k: getattr(s, k) for k in OPT_FIELDS}),
+                                          torch.zeros((), dtype=torch.int32, device=self.device))
+        return buf
+
+    def _adam_state(self, schedule: str):
+        """`_adam_buffers` reset to the state `_adam_init` makes."""
+        moments, step = self._adam_buffers(schedule)
+        for pair in moments.values():
+            for t in pair:
+                t.zero_()
+        step.zero_()
+        return moments, step
+
+    def _opt(self, schedule: str, kf, kfm: dict, geo: dict, lrs: dict, cache):
+        """One `opt_step` on keyframe `kf` through its program, on the Adam
+        state of `schedule`; returns the loss (the program's)."""
+        moments, step = self._adam_buffers(schedule)
+        x = {"kf": kfm, "w2c": kf.w2c, "intr": kf.intr, "geo": geo, "cache": cache,
+             "tile_u": self._tile_draw(kf.width, kf.height)}
+        static = {"width": kf.width, "height": kf.height, "lrs": tuple(sorted(lrs.items()))}
+        return self._p_opt(static, (self.surfels, moments, step), x, rung=self.surfels.capacity)
+
+    def capture_rung(self, frame_map: dict, w2c, intr, width: int, height: int, s=None,
+                     first: bool = False) -> None:
+        """Capture now every program the frame loop runs on the rung of map
+        `s` (default: the current map), from a frame's maps and pose: the
+        map update of each variant the configuration can take (each model
+        cap, the settled fuse-only frame, the burst schedule's geometry-only
+        frame), the binning, the opt step of the schedule, the model render
+        and the hooks' programs; with `first`, frame 0's map update and
+        optimization too. Nothing runs on `s`."""
+        if not self.programs.enabled:
+            return
+        s = self.surfels if s is None else s
+        rung = s.capacity
+        conv = torch.ones((), dtype=torch.bool, device=self.device) if self.gate_fusion else None
+        caps = {self.model_cap}
+        if self._adaptive_cap:
+            caps = {self.renderer.raster_cap, self.renderer.model_cap_min}
+        amortized = self.mcfg.opt_schedule == "amortized"
+        variants = [(False, True, True, c) for c in sorted(caps)]
+        if not amortized:
+            variants += [(False, False, True, c) for c in sorted(caps)]
+        if self.settled_skip:
+            variants += [(False, True, False, c) for c in sorted(caps)]
+        if first:
+            variants.append((True, True, True, self.model_cap))
+        for is_first, full_post, do_render, cap in variants:
+            static, x = self._update_args(frame_map, w2c, intr, width, height, is_first, full_post,
+                                          None if is_first else conv, do_render, cap)
+            self._p_update.prepare(static, s, x, rung=rung)
+        view = {"width": width, "height": height}
+        self._p_render.prepare(view, s, {"w2c": w2c, "intr": intr}, rung=rung)
+        cache = self._p_bin(view, s, {"w2c": w2c, "intr": intr}, rung=rung)
+        kfm = {"color": frame_map["color_map"], "depth": frame_map["depth_map"],
+               "normal": frame_map["normal_map_c"], "rgb_mask": frame_map["rgb_mask"],
+               "geo_mask": frame_map["geo_mask"]}
+        u = (torch.zeros(rt.n_tiles_static(width, height), device=self.device)
+             if self.use_tile_subset else None)
+        x = {"kf": kfm, "w2c": w2c, "intr": intr, "geo": _geo_snapshot(s), "cache": cache, "tile_u": u}
+        static = {**view, "lrs": tuple(sorted(self.sw_lrs.items()))}
+        # in a fixed order: a set's would follow the process's string hash
+        # seed, and so would the order of the captures and their memory
+        for schedule in dict.fromkeys(["window" if amortized else "batch"] + (["batch"] if first else [])):
+            moments, step = self._adam_buffers(schedule, s)
+            self._p_opt.prepare(static, (s, moments, step), x, rung=rung)
+        for hook in self.capture_hooks:
+            hook(s, frame_map, w2c, intr, width, height)
+        self._captured_rungs.add(rung)
+
+    def precompile_ladder(self, frame_map: dict, w2c, intr, width: int, height: int) -> int:
+        """Allocate an empty map on every ladder rung above the current
+        capacity and capture its programs (`System.precompile_ladder`, off
+        by default as in the JAX package): growing onto such a rung moves
+        the map into those buffers and captures nothing. Returns the number
+        of rungs."""
+        if not (self.programs.enabled and self.bucketing):
+            return 0
+        n = 0
+        for cap in self._ladder:
+            if cap > self.surfels.capacity and cap not in self._rung_maps:
+                m = self._rung_maps[cap] = sf.SurfelMap.empty(self.scfg._replace(capacity=cap), device=self.device)
+                self.capture_rung(frame_map, w2c, intr, width, height, s=m)
+                n += 1
+        return n
 
     # -------------------------------------------------------------- host --
 
@@ -630,11 +819,37 @@ class Mapping:
         self._consume_counts()
         need = self._cap_needed()
         if need > self.surfels.capacity:
-            with torch.no_grad():
-                self.surfels = sf.grow_surfels(self.surfels, self._bucket(need))
+            self._move_to_rung(self._bucket(need))
             self._invalidate_capacity_state()
         else:
             self._consider_shrink(need)
+
+    def _move_to_rung(self, capacity: int) -> None:
+        """Grow or shrink the map to `capacity` (into the buffers
+        `precompile_ladder` allocated for it, if any) and drop the programs
+        and Adam buffers of the rung it leaves."""
+        old = self.surfels
+        if capacity == old.capacity:
+            return
+        dst = self._rung_maps.pop(capacity, None)
+        with torch.no_grad():
+            if dst is not None:
+                self.surfels = sf.resize_into(old, dst)
+            elif capacity > old.capacity:
+                self.surfels = sf.grow_surfels(old, capacity)
+            else:
+                self.surfels = sf.shrink_surfels(old, capacity)
+        self._leave_rung(old.capacity)
+
+    def _leave_rung(self, capacity=None) -> None:
+        """Forget the programs and Adam buffers of rung `capacity` (of every
+        rung, and the maps allocated ahead, with None)."""
+        self.programs.drop(capacity)
+        if capacity is None:
+            self._captured_rungs, self._adam_bufs, self._rung_maps = set(), {}, {}
+            return
+        self._captured_rungs.discard(capacity)
+        self._adam_bufs = {k: v for k, v in self._adam_bufs.items() if k[1] != capacity}
 
     def _consider_shrink(self, need: int) -> None:
         """Shrink to the rung that holds `need` plus one more margin of
@@ -645,8 +860,7 @@ class Mapping:
             return
         wm = int(self.surfels.count)
         if wm <= rung:
-            with torch.no_grad():
-                self.surfels = sf.shrink_surfels(self.surfels, rung)
+            self._move_to_rung(rung)
             self._invalidate_capacity_state()
             self._known_count = wm
             self._known_time = self.time
@@ -705,6 +919,8 @@ class Mapping:
             self._ensure_capacity()
         elif self.settled_skip:
             self._consume_counts()  # the settledness signal without the ladder
+        if self.programs.enabled and self.surfels.capacity not in self._captured_rungs:
+            self.capture_rung(frame_map, frame.w2c_matrix(), frame.intr, frame.width, frame.height, first=first)
         if self.settled_skip:
             self._observe_motion(frame)
         full_post = True if amortized else not opt_frame
@@ -716,11 +932,10 @@ class Mapping:
         # only on fused-model-map frames: burst-schedule optimization frames
         # render after the optimization anyway
         skip = not first and full_post and self._skip_render_ok(fail_streak)
+        static, x = self._update_args(frame_map, frame.w2c_matrix(), frame.intr, frame.width, frame.height,
+                                      first, full_post, conv, not skip, self.model_cap)
         with torch.no_grad():
-            self.surfels, model_map, stats_vec = self.map_update(
-                self.surfels, frame_map, frame.w2c_matrix(), frame.intr, self.time,
-                frame.width, frame.height, first, full_post, model_cap=self.model_cap, conv=conv,
-                down=self.view_down, do_render=not skip)
+            model_map, stats_vec = self._p_update(static, self.surfels, x, rung=self.surfels.capacity)
         self._skip_last = skip
         if skip:
             self.render_skips += 1
@@ -782,7 +997,8 @@ class Mapping:
         fragmentation exceeds `compact_frag` of capacity. `defer` reads the
         two counts `count_lag` + 1 frames later."""
         with torch.no_grad():
-            self.surfels = fusion.prune_unstable(self.surfels, self.scfg, self.time, self.mcfg.prune_max_age)
+            sf.assign(self.surfels, fusion.prune_unstable(self.surfels, self.scfg, self.time,
+                                                          self.mcfg.prune_max_age))
             cnt = self.surfels.count.clone()
             act = self.surfels.num_active()
         if defer:
@@ -807,6 +1023,7 @@ class Mapping:
         self._count_pending.clear()
         self._maint_pending = None
         self._invalidate_capacity_state()
+        self._leave_rung()
         self._known_count = count
         self._known_time = self.time - 1
 
@@ -818,7 +1035,7 @@ class Mapping:
         `_consider_shrink`."""
         if count - n_active > self.mcfg.compact_frag * self.surfels.capacity:
             with torch.no_grad():
-                self.surfels = sf.compact_surfels(self.surfels)
+                sf.assign(self.surfels, sf.compact_surfels(self.surfels))
             count = n_active
             self._invalidate_capacity_state()
         self._known_count = count
@@ -827,8 +1044,7 @@ class Mapping:
         if self.bucketing and immediate:
             rung = self._bucket(count + 2 * self._spawn_margin)
             if rung < self.surfels.capacity and count <= rung:
-                with torch.no_grad():
-                    self.surfels = sf.shrink_surfels(self.surfels, rung)
+                self._move_to_rung(rung)
                 self._invalidate_capacity_state()
 
     def _window_batch(self, kfs: list):
@@ -868,8 +1084,7 @@ class Mapping:
             return
         self._opt_acc -= n
         if self._opt_moments is None or self.time % mcfg.sw_optimize_freq == 0:
-            self._opt_moments = _adam_init({k: getattr(self.surfels, k) for k in OPT_FIELDS})
-            self._opt_stepno = torch.zeros((), dtype=torch.int32, device=self.device)
+            self._opt_moments, self._opt_stepno = self._adam_state("window")
             self._host_step = 0
             self._opt_geo = _geo_snapshot(self.surfels)
         if self.devices is not None:
@@ -887,17 +1102,17 @@ class Mapping:
         live_uids = {k.uid for k in window}
         for uid in [u for u in self._opt_cache_map if u not in live_uids]:
             del self._opt_cache_map[uid]
-        cache = self._opt_cache_map.get(kf.uid)
-        if cache is None:
-            cache = self.bin_cache(self.surfels, kf.w2c, kf.intr, kf.width, kf.height)
-            self._opt_cache_map[kf.uid] = cache
+        if kf.uid not in self._opt_cache_map:
+            # kept while the keyframe stays in the window: a copy of the
+            # program's output, which the next binning overwrites
+            cache = self._binning(kf)
+            self._opt_cache_map[kf.uid] = None if cache is None else rt.Binning(*(t.clone() for t in cache))
+        cache = self._opt_cache_map[kf.uid]
         kfm = kf.device_maps()
         if self.debug_nan:
             _check_nan_maps(kfm, kf.uid)
         for _ in range(n):
-            self.surfels, self._opt_moments, self._opt_stepno, loss = self.opt_step(
-                self.surfels, self._opt_moments, self._opt_stepno, kfm, kf.w2c, kf.intr,
-                self._opt_geo, self.sw_lrs, kf.width, kf.height, cache)
+            loss = self._opt("window", kf, kfm, self._opt_geo, self.sw_lrs, cache)
             if self.debug_nan and not np.isfinite(float(loss)):
                 raise FloatingPointError(f"NaN/Inf map-optimization loss at keyframe uid={kf.uid}")
         self._note_opt(n, loss)
@@ -913,23 +1128,20 @@ class Mapping:
         """Adam over a schedule of (keyframe, n_iters) runs; multi-step runs
         bin once."""
         geo_snapshot = _geo_snapshot(self.surfels)
-        moments = _adam_init({k: getattr(self.surfels, k) for k in OPT_FIELDS})
-        step = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._adam_state("batch")
         self._host_step = 0
         loss = torch.full((), float("nan"), device=self.device)
         for kf, n in runs:
             kfm = kf.device_maps()
             if self.debug_nan:
                 _check_nan_maps(kfm, kf.uid)
-            cache = self.bin_cache(self.surfels, kf.w2c, kf.intr, kf.width, kf.height) if n > 1 else None
+            cache = self._binning(kf) if n > 1 else None
             for _ in range(n):
-                self.surfels, moments, step, loss = self.opt_step(
-                    self.surfels, moments, step, kfm, kf.w2c, kf.intr, geo_snapshot, lrs,
-                    kf.width, kf.height, cache)
+                loss = self._opt("batch", kf, kfm, geo_snapshot, lrs, cache)
                 self.opt_steps_total += 1
                 if self.debug_nan and not np.isfinite(float(loss)):
                     raise FloatingPointError(f"NaN/Inf map-optimization loss at keyframe uid={kf.uid}")
-        return loss
+        return loss.clone()
 
     def _optimize_batched(self, batches: list, n_steps_each: int, lrs: dict):
         """The mesh path of `_optimize`: each element of `batches` is a list

@@ -6,7 +6,9 @@ TRANSPOSED, (k, C), with an active mask and an append watermark `count`.
 `SurfelMap` is a dataclass of tensors; the functions below return the map
 they are given, updated IN PLACE where the JAX code donates the surfel state
 (its `donate_argnums`) — callers must not keep aliases to old field values.
-Nothing here reads a device scalar on the host.
+`assign` and `resize_into` write a map into another map's buffers: the
+system keeps its map in one set of buffers per capacity, the state of its
+captured programs. Nothing here reads a device scalar on the host.
 """
 from __future__ import annotations
 
@@ -238,6 +240,30 @@ def shrink_surfels(s: SurfelMap, new_capacity: int) -> SurfelMap:
         return s
     out = {f: getattr(s, f)[..., :new_capacity].clone() for f in FIELDS if f != "count"}
     return SurfelMap(**out, count=s.count)
+
+
+def assign(dst: SurfelMap, src: SurfelMap) -> SurfelMap:
+    """Write every field of `src` into `dst`'s buffer of the same shape
+    (fields that are the same tensor are skipped); returns `dst`."""
+    for f in FIELDS:
+        a, b = getattr(dst, f), getattr(src, f)
+        if a is not b:
+            a.copy_(b)
+    return dst
+
+
+def resize_into(s: SurfelMap, dst: SurfelMap) -> SurfelMap:
+    """`grow_surfels` / `shrink_surfels` of `s` to the capacity of `dst`, an
+    empty map (`SurfelMap.empty`, never written), written into its buffers:
+    the leading slots and the watermark; the slots past `s` keep the empty
+    map's fills, which are `grow_surfels`'. Returns `dst`."""
+    n = min(s.capacity, dst.capacity)
+    for f in FIELDS:
+        if f == "count":
+            dst.count.copy_(s.count)
+        else:
+            getattr(dst, f)[..., :n].copy_(getattr(s, f)[..., :n])
+    return dst
 
 
 def prune_surfels(s: SurfelMap, delete_mask: torch.Tensor) -> SurfelMap:

@@ -13,6 +13,12 @@ solves, which reads the frame's image back to the host every frame.
 `Tracking.model_view_down` pairs a model pyramid rendered at 1/down with
 the frame pyramid from level log2(down) on; under `System.mesh_devices`
 each GN iteration is built over row shards on every device.
+
+`dense_track_pose` runs as one program (`utils.graphs`, one CUDA graph for
+the whole coarse-to-fine solve, keyed by the pyramids' shapes and the
+config); its pose and flags are cloned where they outlive the frame. Two
+modes stay eager: `Tracking.early_exit` (it reads the device back every
+iteration) and the pixel-sharded tracking of a mesh.
 """
 from __future__ import annotations
 
@@ -145,6 +151,10 @@ def dense_track_pose(pyr_model, pyr_frame, seed_delta, prev_transform, cfg: Trac
     return curr, committed, rms, n_icp
 
 
+def _track_program(_state, x, *, cfg):
+    return dense_track_pose(*x, cfg)
+
+
 class Tracker:
     """Host-side tracking orchestrator: frame 0 and `only_mapping` take the
     GT pose; the dense result is committed only on convergence, seeded by
@@ -152,7 +162,7 @@ class Tracker:
     motion model; converged flags are folded into a failure streak
     `readback_lag` frames late."""
 
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, device, programs=None):
         t = cfg.Tracking
         self.device = torch.device(device)
         # pixel-sharded tracking under a mesh (System.mesh_devices; off with
@@ -208,6 +218,25 @@ class Tracker:
             from eggfusion_tpu_torch.core.sparse_init import SparseInitializer
 
             self._sparse = SparseInitializer(cfg)
+        self._track = None
+        if programs is not None and not self.config.early_exit and self.devices is None:
+            self._track = programs.program("track", _track_program)
+
+    def track_pose(self, pyr_model, pyr_frame, seed_delta, prev_transform):
+        """`dense_track_pose` with this tracker's config, through its program
+        where it has one. The outputs are the program's: clone what outlives
+        its next call."""
+        if self._track is None:
+            return dense_track_pose(pyr_model, pyr_frame, seed_delta, prev_transform, self.config, self.devices)
+        return self._track({"cfg": self.config}, None, (tuple(pyr_model), tuple(pyr_frame), seed_delta,
+                                                       prev_transform))
+
+    def capture(self, pyr_model, pyr_frame) -> None:
+        """Capture the tracking program for pyramids like these (`warmup`);
+        nothing runs."""
+        if self._track is not None:
+            eye = torch.eye(4, device=self.device)
+            self._track.prepare({"cfg": self.config}, None, (tuple(pyr_model), tuple(pyr_frame), eye, eye))
 
     def _seed_delta(self, frame, prev_transform):
         """Initial delta: a pending one-shot override first; without a
@@ -262,9 +291,10 @@ class Tracker:
             return
         prev_transform = model_map["transform"]
         seed_delta = self._seed_delta(frame, prev_transform)
-        curr, converged, rms, n_icp = dense_track_pose(
-            model_map["pyramid"], frame.pyramid[self.view_off:], seed_delta, prev_transform,
-            self.config, self.devices)
+        curr, converged, rms, n_icp = self.track_pose(model_map["pyramid"], frame.pyramid[self.view_off:],
+                                                      seed_delta, prev_transform)
+        # the pose and the flag outlive the program's next call
+        curr, converged = curr.clone(), converged.clone()
         frame.tracking_converged = converged  # device scalar
         if self.gate_residual_factor > 0:
             frame.tracking_map_ok = converged | (

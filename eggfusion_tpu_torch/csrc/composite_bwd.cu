@@ -253,9 +253,6 @@ extern "C" int egg_composite_bwd(const void* counts, const void* intr, const voi
   const int wp = tx_tiles * TILE_W;
   const int n_ch = (cap / N_SUB + CH - 1) / CH;
   const size_t smem = Smem::bytes(n_ch);
-  cudaError_t err = cudaFuncSetAttribute(composite_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int aligned = (reinterpret_cast<uintptr_t>(entries) % 16) == 0;
   composite_bwd_kernel<<<dim3(n_tiles * N_SUB), dim3(THREADS), smem,
                          static_cast<cudaStream_t>(stream)>>>(
@@ -268,14 +265,23 @@ extern "C" int egg_composite_bwd(const void* counts, const void* intr, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident blocks per SM of the kernel at `cap` (0 when the query fails).
+// Raise the kernel's dynamic shared-memory limit on the current device to
+// what the largest cap needs. Called once per device before its first launch
+// (the wrapper keeps track), not per launch: a per-launch call is a CUDA
+// runtime call on the host path of every opt step, and CUDA graph capture
+// need not see it.
+extern "C" int egg_composite_bwd_init() {
+  const int n_ch = (MAX_BWD_SLOTS + CH - 1) / CH;
+  return static_cast<int>(cudaFuncSetAttribute(
+      composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Smem::bytes(n_ch)));
+}
+
+// Resident blocks per SM of the kernel at `cap` (0 when the query fails);
+// `egg_composite_bwd_init` must have run on the current device.
 extern "C" int egg_composite_bwd_blocks_per_sm(int cap) {
   const int n_ch = (cap / N_SUB + CH - 1) / CH;
   const size_t smem = Smem::bytes(n_ch);
   int blocks = 0;
-  if (cudaFuncSetAttribute(composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess)
-    return 0;
   const cudaError_t err =
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, composite_bwd_kernel, THREADS, smem);
   return err == cudaSuccess ? blocks : 0;

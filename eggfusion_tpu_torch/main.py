@@ -19,7 +19,10 @@ import numpy as np
 import torch
 
 
-def build_frame(dataset, fid: int, preload: bool, device, nlevel: int = 3):
+def build_frame(dataset, fid: int, preload: bool, device, nlevel: int = 3, programs=None):
+    """Frame `fid` of `dataset` (the next one of its prefetch with
+    `preload`) on `device`, prepared through the "frame" program of
+    `programs` (a system's `programs`) when given."""
     from eggfusion_tpu_torch.core.frame import Frame
 
     nlevel = getattr(dataset, "frame_nlevel", nlevel)
@@ -36,16 +39,17 @@ def build_frame(dataset, fid: int, preload: bool, device, nlevel: int = 3):
     return Frame(uid=fid, ts=ts, color_u8=color, depth_raw=depth, mask=mask,
                  gt_pose_w2c=np.asarray(gt_pose), intr=dataset.intrinsics,
                  depth_scale=dataset.depth_scale, device=device, nlevel=nlevel,
-                 prefiltered=device_feed, filter_depth=device_feed, bilateral=bilateral)
+                 prefiltered=device_feed, filter_depth=device_feed, bilateral=bilateral, programs=programs)
 
 
 def run(cfg, max_frames: int | None = None, verbose: bool = False, resume: str | None = None,
         device=None, random_source=None, on_stage=None):
     """Reconstruct the configured sequence (from the checkpoint `resume`,
     if given), then `finish()` and the enabled evaluations; returns the
-    `EGGFusion`, with the dataset it read as `dataset`. Seconds on the
-    system: `run_wall_s` for the frame loop, `run_frame0_s` for its first
-    frame, `run_finish_s` and `run_eval_s`.
+    `EGGFusion`, with the dataset it read as `dataset`. The system's
+    programs are captured before frame 0 (`EGGFusion.warmup`). Seconds on
+    the system: `run_wall_s` for the frame loop, `run_frame0_s` for its
+    first frame, `run_finish_s` and `run_eval_s`.
     `on_stage(name, ef)`, if given, is called after the frame loop ("loop"),
     `finish()` ("finish") and the evaluations ("eval"), each after the
     device has drained."""
@@ -54,6 +58,7 @@ def run(cfg, max_frames: int | None = None, verbose: bool = False, resume: str |
 
     ef = EGGFusion(cfg, device=device, random_source=random_source)
     dataset = ef.dataset = load_dataset(cfg, ef.device)
+    ef.warmup()
     start = 0
     if resume:
         ef.resume(resume)
@@ -65,7 +70,7 @@ def run(cfg, max_frames: int | None = None, verbose: bool = False, resume: str |
     stage = on_stage or (lambda name, ef: None)
     t_start = time.perf_counter()
     for fid in range(start, n):
-        frame = build_frame(dataset, fid, preload, ef.device, nlevel=ef.nlevel_frame)
+        frame = build_frame(dataset, fid, preload, ef.device, nlevel=ef.nlevel_frame, programs=ef.programs)
         ef.reconstruct(frame)
         if fid == start:  # frame 0 carries the init burst: timed apart
             sync()

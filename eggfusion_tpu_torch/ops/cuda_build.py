@@ -8,7 +8,9 @@ ctypes. Nothing is built or loaded at import time: the first wrapper call
 on a CUDA tensor builds what it needs; `build()` starts several `nvcc`
 processes at once and waits for all of them. A build with `NO_CULL`
 defined drops the kernels' row cull; the checks compare it with the
-wrappers' build, and nothing else launches it.
+wrappers' build, and nothing else launches it. A library with a per-device
+set-up (`DEVICE_INIT`: the backward's shared-memory limit) runs it once per
+device, before its first launch there (`init_device`), not per launch.
 """
 from __future__ import annotations
 
@@ -41,9 +43,12 @@ BLOCKS_PER_SM = {
     "composite_fwd": ("egg_composite_fwd_blocks_per_sm", [_I, _I]),
     "composite_bwd": ("egg_composite_bwd_blocks_per_sm", [_I]),
 }
+# per-device set-up, run on the current device, returning a cudaError_t
+DEVICE_INIT = {"composite_bwd": "egg_composite_bwd_init"}
 
 _libs: dict[tuple, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_initialized: set = set()  # (id of a loaded library, device index)
 
 
 def _nvcc() -> str:
@@ -118,14 +123,39 @@ def load(name: str, defines=()) -> ctypes.CDLL:
             getattr(lib, occ_name).restype = ctypes.c_int
             lib.egg_error_string.argtypes = [ctypes.c_int]
             lib.egg_error_string.restype = ctypes.c_char_p
+            if name in DEVICE_INIT:
+                init = getattr(lib, DEVICE_INIT[name])
+                init.argtypes = []
+                init.restype = ctypes.c_int
             _libs[key] = lib
         return lib
 
 
+def init_device(lib: ctypes.CDLL, name: str, device: int) -> None:
+    """Run the per-device set-up of `lib`, a loaded build of `csrc/<name>.cu`
+    (if it has one), on `device`, which must be current, once."""
+    if name not in DEVICE_INIT:
+        return
+    key = (id(lib), device)
+    if key in _initialized:
+        return
+    with _lock:
+        if key not in _initialized:
+            err = getattr(lib, DEVICE_INIT[name])()
+            if err:
+                raise RuntimeError(f"{DEVICE_INIT[name]} failed on cuda:{device}: {error_string(err)}")
+            _initialized.add(key)
+
+
 def blocks_per_sm(name: str, *args: int) -> int:
-    """Resident blocks per SM of kernel `name` (cudaOccupancy query; the
-    forward takes (cap, geom), the backward (cap))."""
-    return getattr(load(name), BLOCKS_PER_SM[name][0])(*args)
+    """Resident blocks per SM of kernel `name` on the current device
+    (cudaOccupancy query; the forward takes (cap, geom), the backward
+    (cap))."""
+    import torch
+
+    lib = load(name)
+    init_device(lib, name, torch.cuda.current_device())
+    return getattr(lib, BLOCKS_PER_SM[name][0])(*args)
 
 
 def error_string(err: int) -> str:

@@ -211,6 +211,13 @@ def _unnormalize(coords: torch.Tensor, H: int, W: int):
     return x, y
 
 
+def gather_index(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Integer-valued float coords -> gather indices in [0, n - 1]; NaN reads
+    index 0, as the JAX module's float->int cast does (torch casts NaN to
+    INT64_MIN, a device-side assert in the gather)."""
+    return torch.clamp(torch.nan_to_num(x, nan=0.0), 0, n - 1).long()
+
+
 def bilinear_sample(img: torch.Tensor, coords: torch.Tensor, padding: str = "zeros") -> torch.Tensor:
     """Bilinear sample of (H, W, C) at normalized coords (..., 2)
     (align_corners=True); padding 'zeros' | 'border'."""
@@ -222,8 +229,8 @@ def bilinear_sample(img: torch.Tensor, coords: torch.Tensor, padding: str = "zer
     dy = y - y0
 
     def gather(ix, iy):
-        ic = torch.clamp(ix, 0, W - 1).long()
-        jc = torch.clamp(iy, 0, H - 1).long()
+        ic = gather_index(ix, W)
+        jc = gather_index(iy, H)
         vals = img[jc, ic]
         if padding == "zeros":
             inb = ((ix >= 0) & (ix <= W - 1) & (iy >= 0) & (iy <= H - 1)).to(img.dtype)
@@ -248,8 +255,8 @@ def nearest_sample(img: torch.Tensor, coords: torch.Tensor, padding: str = "bord
     x, y = _unnormalize(coords, H, W)
     ix = torch.round(x)
     iy = torch.round(y)
-    ic = torch.clamp(ix, 0, W - 1).long()
-    jc = torch.clamp(iy, 0, H - 1).long()
+    ic = gather_index(ix, W)
+    jc = gather_index(iy, H)
     vals = img[jc, ic]
     if padding == "zeros":
         inb = ((ix >= 0) & (ix <= W - 1) & (iy >= 0) & (iy <= H - 1)).to(img.dtype)

@@ -551,11 +551,13 @@ def composite_bwd(entries, counts, intr, g_rgb, g_nrm, g_dep, g_opa, g_T, T_fin,
 def _launch_bwd(lib, entries, counts, intr, g_rgb, g_nrm, g_dep, g_opa, g_T, T_fin, tx_tiles: int, cap: int):
     """Launch the backward kernel of the loaded library `lib` on checked
     CUDA inputs (the wrapper's launch; the checks launch a second build
-    through it), with the inputs' device current: the kernel launches, and
-    its shared-memory limit is set, on that device."""
+    through it), with the inputs' device current: the kernel launches on
+    that device, after the library's one-time set-up there (its
+    shared-memory limit)."""
     from eggfusion_tpu_torch.ops import cuda_build
 
     with torch.cuda.device(entries.device):
+        cuda_build.init_device(lib, "composite_bwd", entries.device.index)
         ins = [t.contiguous() for t in (counts, intr, entries, g_rgb, g_nrm, g_dep, g_opa, g_T, T_fin)]
         d_entries = torch.zeros_like(entries)
         err = lib.egg_composite_bwd(*[_ptr(t) for t in ins], _ptr(d_entries), entries.shape[0], tx_tiles, cap,

@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from eggfusion_tpu_torch.ops.image import decimate2d
+from eggfusion_tpu_torch.ops.image import decimate2d, gather_index
 from eggfusion_tpu_torch.ops.pyramid import PyramidLevel
 
 
@@ -40,9 +40,9 @@ def _sample_packed(pack: torch.Tensor, coords: torch.Tensor):
     fx = x - x0
     fy = y - y0
 
-    x0c = torch.clamp(x0, 0, W - 1).long()
-    y0c = torch.clamp(y0, 0, H - 1).long()
-    y1c = torch.clamp(y0 + 1, 0, H - 1).long()
+    x0c = gather_index(x0, W)
+    y0c = gather_index(y0, H)
+    y1c = gather_index(y0 + 1, H)
 
     s0 = pack[y0c, x0c]
     s1 = pack[y1c, x0c]

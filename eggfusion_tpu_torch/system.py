@@ -13,6 +13,20 @@ trajectories and the render (keyframe and held-out views) and
 reconstruction metrics under `save_dir`; `evaluate_render_dataset` scores
 renders at the ground-truth poses of another split of a dataset (the
 ScanNet++ test split).
+
+The frame's programs run through the system's program cache
+(`utils.graphs.Programs`, the counterpart of the JAX package's jitted
+programs): the frame preparation and its pyramid, `dense_track_pose`,
+`preprocess_frame_map`, the map update (with `postprocess_model_map`),
+the burst schedule's render and postprocess, the opt step, the binning and
+the model render. On CUDA each is a captured CUDA graph; `warmup` captures
+them before frame 0, as the JAX `warmup` compiles. What stays eager: the
+mesh's window step and pixel-sharded tracking, `Tracking.early_exit`,
+recovery and its rotation sweep (the re-anchor's render replays the model
+render), map maintenance (prune and compact), `finish()` and the
+evaluations except where they replay a captured key, and the sparse
+frontend's host read (it comes before the tracking program; its seed is
+an input).
 """
 from __future__ import annotations
 
@@ -24,6 +38,7 @@ import numpy as np
 import torch
 
 from eggfusion_tpu_torch.core import surfels as sf
+from eggfusion_tpu_torch.core.frame import Frame
 from eggfusion_tpu_torch.core.mapper import KEEP_MODEL_MAP, Mapping
 from eggfusion_tpu_torch.core.renderer import Renderer
 from eggfusion_tpu_torch.core.tracker import Tracker, dense_track
@@ -35,6 +50,7 @@ from eggfusion_tpu_torch.ops import image as imops
 from eggfusion_tpu_torch.ops.pyramid import build_pyramid
 from eggfusion_tpu_torch.utils import eval as evalu
 from eggfusion_tpu_torch.utils.device import resolve_device
+from eggfusion_tpu_torch.utils.graphs import Programs
 
 
 def _host(x) -> np.ndarray:
@@ -72,6 +88,10 @@ def preprocess_frame_map(color, depth, vmap, nmap, mask, intr, w2c, reco_normal_
         "vertex_map_w": tf.transform_map(vmap, R, t),
         "normal_map_w": tf.transform_map(nmap, R, torch.zeros_like(t)),
     }
+
+
+def _preprocess_program(_state, x, *, reco_normal_thres):
+    return preprocess_frame_map(*x, reco_normal_thres)
 
 
 def postprocess_model_map(rendered: dict, frame_map: dict, intr, w2c, reco_normal_thres: float,
@@ -114,14 +134,19 @@ def postprocess_model_map(rendered: dict, frame_map: dict, intr, w2c, reco_norma
 class EGGFusion:
     """The SLAM system. `device` None means CUDA (raises without a GPU);
     `random_source` replaces the mapper's random draws (see
-    `core.mapper.RandomSource`)."""
+    `core.mapper.RandomSource`); `graphs` None runs the frame's programs as
+    CUDA graphs on CUDA and eagerly on the CPU, True as graphs (on the CPU:
+    through the same static buffers, eagerly), False eagerly
+    (`utils.graphs.Programs`)."""
 
-    def __init__(self, cfg, device=None, random_source=None):
+    def __init__(self, cfg, device=None, random_source=None, graphs=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.programs = Programs(self.device, graphs)
         self.renderer = Renderer(cfg, self.device)
-        self.tracker = Tracker(cfg, self.device)
-        self.mapper = Mapping(cfg, self.renderer, self.device, random_source=random_source)
+        self.tracker = Tracker(cfg, self.device, self.programs)
+        self.mapper = Mapping(cfg, self.renderer, self.device, random_source=random_source,
+                              programs=self.programs)
         self.frame_map = None
         self.model_map = None
         s = cfg.System
@@ -155,6 +180,73 @@ class EGGFusion:
         self._reloc = None
         self._reloc_enabled = bool(cfg.Tracking.get("reloc_descriptors", True))
         self._rot_sweep = bool(cfg.Tracking.get("recovery_rotation_sweep", True))
+        self._p_post = self.programs.program("postprocess", self._postprocess_program)
+        if self.mapper.mcfg.opt_schedule != "amortized":
+            self.mapper.capture_hooks.append(self._capture_postprocess)
+        self.warmup_s = None  # seconds of `warmup`, once it ran
+
+    # ---- the programs ahead of frame 0 --------------------------------------
+
+    def warmup(self, full: bool | None = None) -> None:
+        """Capture the frame's programs before frame 0 (the JAX `warmup`).
+
+        Builds the CUDA kernels (on CUDA), then a frame — the run's first
+        (`self.dataset`, if set) or a dummy one — and captures the tracking
+        program on its pyramid; with `full` (default: on CUDA) the frame,
+        preprocess, map-update (frame 0's and the later frames'), opt-step,
+        binning and model-render programs at the starting rung, and with
+        `System.precompile_ladder` those of every rung above it (off by
+        default, as in JAX). Runs no frame: the system's state is left as it
+        was, and `frame_map` is reset."""
+        t0 = _time.perf_counter()
+        if full is None:
+            full = self.device.type == "cuda"
+        if self.device.type == "cuda" and self.renderer.backend == "pallas":
+            from eggfusion_tpu_torch.ops import cuda_build
+
+            cuda_build.build()
+        programs = self.programs if full else None
+        dataset = getattr(self, "dataset", None)
+        if dataset is not None:
+            from eggfusion_tpu_torch.main import build_frame
+
+            f = build_frame(dataset, 0, False, self.device, nlevel=self.nlevel_frame, programs=programs)
+        else:
+            intr = CameraIntrinsics.from_calibration(self.cfg.Dataset.Calibration)
+            H, W = intr.height, intr.width
+            f = Frame(uid=-1, ts=0.0, color_u8=np.zeros((H, W, 3), np.float32), depth_raw=np.ones((H, W), np.float32),
+                      mask=np.ones((H, W), np.float32), gt_pose_w2c=np.eye(4, dtype=np.float32), intr=intr,
+                      depth_scale=1.0, device=self.device, nlevel=self.nlevel_frame, prefiltered=True,
+                      bilateral=self.bilateral, programs=programs)
+        f.update_transform_gt()
+        self.tracker.capture(f.pyramid[self.view_off:], f.pyramid[self.view_off:])
+        if full:
+            self.preprocess(f)
+            self.mapper.capture_rung(self.frame_map, f.w2c_matrix(), f.intr, f.width, f.height, first=True)
+            # frame 0's model view (its map update renders nothing)
+            self._capture_postprocess(self.mapper.surfels, self.frame_map, f.w2c_matrix(), f.intr, f.width,
+                                      f.height)
+            if bool(self.cfg.System.get("precompile_ladder", False)):
+                n = self.mapper.precompile_ladder(self.frame_map, f.w2c_matrix(), f.intr, f.width, f.height)
+                print(f"warmup: captured the programs of {n} ladder rungs ahead")
+        self.frame_map = None  # dummy-frame state must not leak into frame 0
+        self.warmup_s = _time.perf_counter() - t0
+
+    def _postprocess_program(self, s, x, *, width, height, down):
+        with torch.no_grad():
+            intr = x["intr"]
+            out = self.renderer.render_at(sf.render_params(s), x["w2c"], intr / down if down > 1 else intr,
+                                          width // down, height // down, need_grad=False)
+            rendered = {"render_color": out["color"], "render_depth": out["depth"],
+                        "render_normal": out["normal"], "render_opacity": out["opacity"]}
+            return postprocess_model_map(
+                rendered, x["frame_map"], intr, x["w2c"], self.reco_normal_thres, self.reco_depth_thres,
+                self.reco_opacity_thres, self.depth_range_min, self.depth_range_max, self.nlevel, down=down,
+                bilateral=self.bilateral)
+
+    def _capture_postprocess(self, s, frame_map, w2c, intr, width, height) -> None:
+        self._p_post.prepare({"width": width, "height": height, "down": self.mv_down}, s,
+                             {"frame_map": frame_map, "w2c": w2c, "intr": intr}, rung=s.capacity)
 
     # ---- recovery -----------------------------------------------------------
 
@@ -164,7 +256,7 @@ class EGGFusion:
         intr = CameraIntrinsics.from_calibration(self.cfg.Dataset.Calibration)
         d = self.mv_down
         ia = intr.as_tensor(self.device) / d
-        out = self.mapper.render_model(self.mapper.surfels, w2c, ia, intr.width // d, intr.height // d)
+        out = self.mapper.render(w2c, ia, intr.width // d, intr.height // d)
         opa = out["opacity"] > self.reco_opacity_thres
         pyramid = build_pyramid(out["color"], out["depth"], opa.to(torch.float32), ia, nlevel=self.nlevel)
         return {"transform": w2c, "pyramid": pyramid}
@@ -272,7 +364,8 @@ class EGGFusion:
         t3 = _time.perf_counter()
         self.append_trajectory(frame)
         if self.heldout_stride > 0 and frame.uid % self.heldout_stride == self.heldout_stride // 2:
-            self._heldout.append((frame.uid, frame.w2c_matrix(), frame.color, frame.depth))
+            # copies: the frame's maps belong to the frame program
+            self._heldout.append((frame.uid, frame.w2c_matrix(), frame.color.clone(), frame.depth.clone()))
             if len(self._heldout) > self.heldout_max:
                 self._heldout.pop(0)
         rec = {
@@ -300,24 +393,17 @@ class EGGFusion:
 
     def preprocess(self, frame) -> None:
         p0 = frame.pyramid[0]
-        self.frame_map = preprocess_frame_map(
-            frame.color, frame.depth, p0.vertex, p0.normal, frame.mask, frame.intr,
-            frame.w2c_matrix(), self.reco_normal_thres)
+        x = (frame.color, frame.depth, p0.vertex, p0.normal, frame.mask, frame.intr, frame.w2c_matrix())
+        self.frame_map = self.programs.program("preprocess", _preprocess_program)(
+            {"reco_normal_thres": self.reco_normal_thres}, None, x)
 
     def postprocess(self, frame) -> None:
         """Render the model at the frame's pose (at 1/model_view_down) and
         build the next tracking model map."""
-        d = self.mv_down
-        with torch.no_grad():
-            out = self.renderer.render_at(sf.render_params(self.mapper.surfels), frame.w2c_matrix(),
-                                          frame.intr / d if d > 1 else frame.intr, frame.width // d,
-                                          frame.height // d, need_grad=False)
-            rendered = {"render_color": out["color"], "render_depth": out["depth"],
-                        "render_normal": out["normal"], "render_opacity": out["opacity"]}
-            self.model_map = postprocess_model_map(
-                rendered, self.frame_map, frame.intr, frame.w2c_matrix(), self.reco_normal_thres,
-                self.reco_depth_thres, self.reco_opacity_thres, self.depth_range_min,
-                self.depth_range_max, self.nlevel, down=d, bilateral=self.bilateral)
+        s = self.mapper.surfels
+        self.model_map = self._p_post(
+            {"width": frame.width, "height": frame.height, "down": self.mv_down}, s,
+            {"frame_map": self.frame_map, "w2c": frame.w2c_matrix(), "intr": frame.intr}, rung=s.capacity)
 
     def append_trajectory(self, frame) -> None:
         # the estimate stays a device handle; `_traj_np` converts in bulk
@@ -506,7 +592,7 @@ class EGGFusion:
         for uid, w2c, color, depth in self._heldout:
             if uid in kf_uids:
                 continue
-            out = self.mapper.render_model(self.mapper.surfels, w2c, ia, intr.width, intr.height)
+            out = self.mapper.render(w2c, ia, intr.width, intr.height)
             v = _host(self._device_render_metrics(color, depth, out["color"], out["depth"]))
             rows.append({"frame": uid, "psnr": float(v[0]), "depth_l1": float(v[1])})
         if not rows:
@@ -534,7 +620,7 @@ class EGGFusion:
         for i in range(len(dataset)):
             _ts, color, depth, _mask, w2c = dataset[i]
             w2c = torch.as_tensor(np.asarray(w2c) @ adj, dtype=torch.float32, device=self.device)
-            out = self.mapper.render_model(self.mapper.surfels, w2c, ia, intr.width, intr.height)
+            out = self.mapper.render(w2c, ia, intr.width, intr.height)
             r = evalu.eval_render(color.astype(np.float32) / 255.0,
                                   (depth.astype(np.float32) / depth_scale)[..., None],
                                   _host(out["color"]), _host(out["depth"]))
@@ -561,7 +647,7 @@ class EGGFusion:
         the keyframe means."""
         results = []
         for kf in self.mapper.keyframe_manager.keyframes.values():
-            out = self.mapper.render_model(self.mapper.surfels, kf.w2c, kf.intr, kf.width, kf.height)
+            out = self.mapper.render(kf.w2c, kf.intr, kf.width, kf.height)
             results.append(evalu.eval_render(_host(kf.maps["color"]), _host(kf.maps["depth"]),
                                              _host(out["color"]), _host(out["depth"])))
         if not results:

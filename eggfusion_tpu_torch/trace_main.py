@@ -4,12 +4,14 @@
 
 Runs `EGGFusion.reconstruct` over the synthetic sequence in the slice
 configuration (`config.slice_config`: `bench.py`'s 1280x704 workload with a
-fixed 262144-slot map and no frame cycling): `--warmup`
-frames, then half of the rest timed without the profiler, then the other
-half under `torch.profiler` (CPU + CUDA). Prints one JSON line: the
-untraced frame time, device time per frame and by kernel name from the
-trace, the device busy share (device time per frame over the untraced frame
-time) and the host-side phase times per frame.
+fixed 262144-slot map and no frame cycling), its programs on CUDA graphs
+after `EGGFusion.warmup` as `main.run` runs them: `--warmup` frames, then
+half of the rest timed without the profiler, then the other half under
+`torch.profiler` (CPU + CUDA). Prints one JSON line: the untraced frame
+time, device time per frame and by kernel name from the trace (kernels
+replayed from a graph included), the device busy share (device time per
+frame over the untraced frame time) and the host-side phase times per
+frame.
 """
 from __future__ import annotations
 
@@ -37,10 +39,11 @@ def main(argv=None) -> dict:
 
     cfg = slice_config(args.frames, os.path.join("chiprun_out", "trace_main"))
     ef = EGGFusion(cfg)
-    dataset = load_dataset(cfg, ef.device)
+    dataset = ef.dataset = load_dataset(cfg, ef.device)
+    ef.warmup()
 
     def step(fid):
-        ef.reconstruct(build_frame(dataset, fid, False, ef.device, nlevel=ef.nlevel_frame))
+        ef.reconstruct(build_frame(dataset, fid, False, ef.device, nlevel=ef.nlevel_frame, programs=ef.programs))
 
     # warm-up, then an untimed-by-profiler half (frame rate), then a traced
     # half (device time: the profiler slows the host, not the kernels)

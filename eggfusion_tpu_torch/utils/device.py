@@ -14,7 +14,9 @@ def resolve_device(device=None) -> torch.device:
     Raises when CUDA is asked for (explicitly or by default) and no GPU is
     present — entry points never fall back to the CPU silently; tests pass
     `device="cpu"`. On CUDA, float32 convolutions and matrix products are
-    pinned to full float32 (no TF32): the JAX reference computes in float32.
+    pinned to full float32 (no TF32): the JAX reference computes in float32;
+    and the small dense solves (the tracker's 6x6, the 4x4 inverses) to
+    cuSOLVER, whose calls a CUDA graph can capture (MAGMA's synchronize).
     """
     dev = torch.device(device if device is not None else "cuda")
     if dev.type == "cuda":
@@ -24,6 +26,7 @@ def resolve_device(device=None) -> torch.device:
                 "available; pass device='cpu' to run on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.preferred_linalg_library("cusolver")
     return dev
 
 

@@ -12,7 +12,11 @@ map. The port's mapper replays the JAX spawn draws, so both spawn from the
 same uniforms; the run crosses frame 0's init burst and amortized
 optimization steps. The JAX compositor runs with 8 surfels per scan step
 instead of 32: the same blend, one surfel after another in depth order,
-compiled in a fraction of the time.
+compiled in a fraction of the time. The port's system runs its programs
+through the CPU plumbing of its compile layer (`EGGFusion(graphs=True)`:
+static inputs, outputs owned by the program) in poison mode, after a full
+`warmup()`: a consumer that kept an output of a program across its next
+call would read NaN.
 
 Tolerances of the end of the run: the finish steps and keyframes equal;
 positions and rotations bit-unchanged by finish in both packages (their
@@ -118,7 +122,16 @@ def runs(tmp_path_factory):
         if name == "loop":
             before["torch"] = (_map_np(ef.mapper.surfels), ef.mapper.opt_steps_total)
 
-    ef_t = t_run(_cfg(tcfg, tmp / "torch"), device="cpu", random_source=JaxDraws(), on_stage=on_stage)
+    real_init = TEGGFusion.__init__
+
+    def plumbed(self, *args, **kwargs):
+        real_init(self, *args, graphs=True, **kwargs)
+        self.programs.poison = True
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TEGGFusion, "__init__", plumbed)
+        mp.setattr(TEGGFusion, "warmup", functools.partialmethod(TEGGFusion.warmup, full=True))
+        ef_t = t_run(_cfg(tcfg, tmp / "torch"), device="cpu", random_source=JaxDraws(), on_stage=on_stage)
     return ef_j, ef_t, before
 
 
@@ -130,6 +143,17 @@ def _pose_errors(c2w_a, c2w_b):
 
 
 class TestSliceParity:
+    def test_warmup_before_frame0(self, runs):
+        """`main.run` warmed the port's system up before frame 0, as the JAX
+        `main.run` does, through its program plumbing: the programs were
+        made then and the frames replayed them (the trajectory the next test
+        holds to the JAX one is this system's)."""
+        _, ef_t, _ = runs
+        assert ef_t.warmup_s is not None and ef_t.programs.mode == "plumb"
+        stats = ef_t.programs.stats()
+        for name in ("frame", "track", "preprocess", "map_update", "opt_step"):
+            assert stats[name]["captures"] >= 1 and stats[name]["replays"] >= N_FRAMES - 1, (name, stats[name])
+
     def test_per_frame_poses(self, runs):
         ef_j, ef_t, _ = runs
         est_j, est_t = ef_j._traj_np("est"), ef_t._traj_np("est")

@@ -9,6 +9,7 @@ blur-decimate products and the normal equations 1e-4 relative (float32
 sums over thousands of pixels in another order); poses 1e-4.
 """
 import functools
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +36,14 @@ torch.set_num_threads(2)
 
 INTR = CameraIntrinsics(fx=72.0, fy=72.0, cx=39.5, cy=29.5, width=80, height=60)
 INTR_NP = np.asarray([72.0, 72.0, 39.5, 29.5], np.float32)
-RNG = np.random.default_rng(0)
+
+
+@pytest.fixture
+def rng(request):
+    """A generator of the test's own, seeded from its name (parameters
+    included): a test's inputs do not depend on which tests ran before it
+    in the worker."""
+    return np.random.default_rng(zlib.crc32(request.node.name.encode()))
 
 
 def _t(x):
@@ -47,8 +55,8 @@ def _close(j, t, atol=1e-5, rtol=0.0):
                                np.asarray(j), atol=atol, rtol=rtol)
 
 
-def _depth(h=60, w=80):
-    d = 1.5 + 0.2 * RNG.standard_normal((h, w)).astype(np.float32) * 0.1
+def _depth(rng, h=60, w=80):
+    d = 1.5 + 0.2 * rng.standard_normal((h, w)).astype(np.float32) * 0.1
     d[:, w // 2:] += 0.5  # a depth edge
     return d.astype(np.float32)
 
@@ -75,8 +83,8 @@ def _to_torch_pyramid(pyr):
 
 @pytest.mark.parametrize("op", ["vertex_normal", "scharr", "downsample_even", "downsample_odd",
                                 "decimate", "diff_gradients"])
-def test_image_ops(op):
-    d = _depth()
+def test_image_ops(op, rng):
+    d = _depth(rng)
     if op == "vertex_normal":
         for a, b in zip(jim.compute_vertex_and_normal(jnp.asarray(d)[..., None], jnp.asarray(INTR_NP)),
                         tim.compute_vertex_and_normal(_t(d)[..., None], _t(INTR_NP))):
@@ -85,10 +93,10 @@ def test_image_ops(op):
         for a, b in zip(jim.scharr_gradient(jnp.asarray(d)), tim.scharr_gradient(_t(d))):
             _close(a, b)
     elif op.startswith("downsample"):
-        img = RNG.uniform(size=(61, 79, 3) if op.endswith("odd") else (60, 80, 3)).astype(np.float32)
+        img = rng.uniform(size=(61, 79, 3) if op.endswith("odd") else (60, 80, 3)).astype(np.float32)
         _close(jim.gaussian_downsample(jnp.asarray(img)), tim.gaussian_downsample(_t(img)), atol=1e-5, rtol=1e-5)
     elif op == "decimate":
-        img = RNG.uniform(size=(60, 80, 3)).astype(np.float32)
+        img = rng.uniform(size=(60, 80, 3)).astype(np.float32)
         _close(jim.decimate2d(jnp.asarray(img), 4), tim.decimate2d(_t(img), 4), atol=0)
         m = img[..., 0] > 0.5
         np.testing.assert_array_equal(tim.decimate2d(_t(m), 2).numpy(), np.asarray(jim.decimate2d(jnp.asarray(m), 2)))
@@ -98,26 +106,45 @@ def test_image_ops(op):
 
 
 @pytest.mark.parametrize("mode", ["exact", "separable"])
-def test_bilateral_filters(mode):
-    d = _depth(30, 40)[..., None]
+def test_bilateral_filters(mode, rng):
+    d = _depth(rng, 30, 40)[..., None]
     fj = jim.bilateral_filter if mode == "exact" else jim.bilateral_filter_separable
     _close(fj(jnp.asarray(d), 13, 0.03, 4.5), tim.bilateral(mode)(_t(d), 13, 0.03, 4.5), atol=1e-5)
 
 
 @pytest.mark.parametrize("padding", ["zeros", "border"])
-def test_grid_sampling(padding):
-    img = RNG.uniform(size=(20, 30, 3)).astype(np.float32)
-    coords = RNG.uniform(-1.1, 1.1, (7, 9, 2)).astype(np.float32)
+def test_grid_sampling(padding, rng):
+    img = rng.uniform(size=(20, 30, 3)).astype(np.float32)
+    coords = rng.uniform(-1.1, 1.1, (7, 9, 2)).astype(np.float32)
     _close(jim.bilinear_sample(jnp.asarray(img), jnp.asarray(coords), padding),
            tim.bilinear_sample(_t(img), _t(coords), padding), atol=1e-6)
     _close(jim.nearest_sample(jnp.asarray(img), jnp.asarray(coords), padding),
            tim.nearest_sample(_t(img), _t(coords), padding), atol=0)
 
 
+@pytest.mark.parametrize("sampler", ["packed", "bilinear", "nearest"])
+def test_sampling_nan_coords(sampler, rng):
+    """A NaN coordinate (a NaN pose mid-solve) samples as the JAX module's
+    float->int cast has it (index 0) instead of failing in the gather."""
+    coords = rng.uniform(-1.1, 1.1, (7, 9, 2)).astype(np.float32)
+    coords[1, 2, 0] = coords[3, 4, 1] = coords[5, 6] = np.nan
+    if sampler == "packed":
+        pack = rng.uniform(size=(20, 30, 20)).astype(np.float32)
+        outs_j = jgn._sample_packed(jnp.asarray(pack), jnp.asarray(coords))
+        outs_t = tgn._sample_packed(_t(pack), _t(coords))
+    else:
+        img = rng.uniform(size=(20, 30, 3)).astype(np.float32)
+        fj = jim.bilinear_sample if sampler == "bilinear" else jim.nearest_sample
+        ft = tim.bilinear_sample if sampler == "bilinear" else tim.nearest_sample
+        outs_j, outs_t = (fj(jnp.asarray(img), jnp.asarray(coords)),), (ft(_t(img), _t(coords)),)
+    for a, b in zip(outs_j, outs_t):
+        _close(a, b, atol=1e-6)
+
+
 @pytest.mark.parametrize("bilateral", ["exact", "separable"])
-def test_prepare_frame_and_pyramid(bilateral):
-    color_u8 = RNG.integers(0, 256, (60, 80, 3)).astype(np.uint8)
-    depth = _depth() * 1000.0
+def test_prepare_frame_and_pyramid(bilateral, rng):
+    color_u8 = rng.integers(0, 256, (60, 80, 3)).astype(np.uint8)
+    depth = _depth(rng) * 1000.0
     mask = np.ones((60, 80), np.float32)
     cj, dj, mj = jframe.prepare_frame_inputs(jnp.asarray(color_u8), jnp.asarray(depth), jnp.asarray(mask),
                                              jnp.float32(1000.0), 3, bilateral)
