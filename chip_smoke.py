@@ -99,7 +99,26 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               one GPU the line says so); fails unless ATE < 1 cm and batched
               steps ran. `python3 chip_smoke.py --phase mesh` runs the build
               and the multi-GPU part alone.
- 10. graphs — the compile layer (`eggfusion_tpu_torch/utils/graphs.py`):
+ 10. dryrun — the entry points (`eggfusion_tpu_torch.entry`, the
+              counterparts of `__graft_entry__.py`):
+              `entry()` (one render of `render_xla` plus the mapping loss) on
+              the card, whose loss and gradients must be finite and agree
+              with the same function on CPU tensors (the loss within 1e-4,
+              the gradients as `entry_card_vs_cpu` says), its forward +
+              backward timed; `dryrun_multichip(1)` and the same dryrun on 2
+              shards both on cuda:0, whose own assertions must hold and whose
+              trajectories must agree within 5e-4, both compositors
+              launched; every kernel against its plain version on the
+              dryrun's final map at its caps (256, 128: "dryrun_check"); the
+              OpenCV frontend and the live Azure Kinect dataset raise their
+              RuntimeError where `cv2` / `pyk4a` are missing.
+              `python3 chip_smoke.py --phase scaling` runs the build and
+              `eggfusion_tpu_torch.mesh_scaling`'s table on 1, 2 and 4 GPUs
+              (those visible) at the JAX dryrun's size and at 640x480 over
+              32 frames, there also without the pixel-sharded tracker and
+              at the default slab caps (on a machine with 4 GPUs for the
+              4-GPU rows).
+ 11. graphs — the compile layer (`eggfusion_tpu_torch/utils/graphs.py`):
               two 24-frame runs of the slice configuration from the same
               seed, eager (`EGGFusion(graphs=False)`) and on CUDA graphs
               (the default), whose trajectories and final maps must agree bit
@@ -132,7 +151,6 @@ import os
 import re
 import shutil
 import statistics
-import subprocess
 import sys
 import time
 import traceback
@@ -351,11 +369,12 @@ def bwd_misses(d_k, d_p, d_64) -> tuple[int, int, float, float]:
     return int((off & ~within)[..., :15].sum()), int((off & within)[..., :15].sum()), rel(d_k), rel(d_p)
 
 
-def check_view(torch, view: dict, timed: bool, phase: str, f64_band: bool = False, cap: int = 2048) -> dict:
+def check_view(torch, view: dict, timed: bool, phase: str, f64_band: bool = False, cap: int = 2048,
+               opt_cap: int = 1024) -> dict:
     """Each kernel against its plain version on the binned map of `view`,
     at the shapes a frame gives it: the forward, full and geometry-only, at
     CAP `cap` over all tiles (the model render), the full forward and the
-    backward at CAP 1024 over the opt step's tile subset. Each is held to
+    backward at CAP `opt_cap` over the opt step's tile subset. Each is held to
     its tolerance and bit for bit to its build without the cull; with
     `f64_band`, a value off its float32 plain version by more than the
     tolerance passes only where the plain version is itself as far off its
@@ -403,7 +422,7 @@ def check_view(torch, view: dict, timed: bool, phase: str, f64_band: bool = Fals
     # model render), and the full forward at the opt step's shape too ----
     entries, counts = view["slab"](cap)
     pc = pair_counts(rt, entries, counts, tx, cap)
-    opt_entries, opt_counts = view["slab"](1024)
+    opt_entries, opt_counts = view["slab"](opt_cap)
     opt_counts = subset(opt_counts)
     for geom, name in ((False, "composite_fwd"), (True, "composite_geom")):
         r = check_fwd(entries, counts, cap, geom)
@@ -414,15 +433,16 @@ def check_view(torch, view: dict, timed: bool, phase: str, f64_band: bool = Fals
             bytes_moved = pc["entries"] * 64 + counts.numel() * 4 + 16 + planes * hp * wp * 4
             results[name].update(plain_ms=plain_ms, **bound(name, pc, bytes_moved))
         if not geom:
-            r2 = check_fwd(opt_entries, opt_counts, 1024, False)
+            r2 = check_fwd(opt_entries, opt_counts, opt_cap, False)
             if timed:
-                results[name]["ms_by_shape"] = {f"cap{cap}_all_tiles": r["ms"], "cap1024_half_tiles": r2["ms"]}
-            results[name]["opt_shape"] = {"cap": 1024, "kept_tiles": int(view["keep"].sum()),
-                                          **pair_counts(rt, opt_entries, opt_counts, tx, 1024), **r2}
+                results[name]["ms_by_shape"] = {f"cap{cap}_all_tiles": r["ms"],
+                                                f"cap{opt_cap}_half_tiles": r2["ms"]}
+            results[name]["opt_shape"] = {"cap": opt_cap, "kept_tiles": int(view["keep"].sum()),
+                                          **pair_counts(rt, opt_entries, opt_counts, tx, opt_cap), **r2}
         emit({"phase": phase, "kernel": name, **results[name]})
 
-    # ---- backward, CAP 1024 with a half tile subset (the opt step) ----
-    cap = 1024
+    # ---- backward, CAP `opt_cap` with a half tile subset (the opt step) ----
+    cap = opt_cap
     entries, counts = opt_entries, opt_counts
     rgb, nrm, dep, opa, T = rt.composite_fwd(entries, counts, intr, tx, cap)
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -754,6 +774,7 @@ def variant_run(cfglib, torch, label: str, overrides: dict, n_frames: int = 24) 
 
     def on_stage(stage, ef):
         stages[stage] = dict(rt.LAUNCHES)
+        stages[stage + "_by_device"] = dict(rt.LAUNCHES_BY_DEVICE)
         rt.reset_launch_counts()
 
     rt.reset_launch_counts()
@@ -766,7 +787,7 @@ def variant_run(cfglib, torch, label: str, overrides: dict, n_frames: int = 24) 
            "active_surfels": int(ef.mapper.surfels.num_active()), "opt_steps": ef.mapper.opt_steps_total,
            "model_pyramid_base": list(ef.model_map["pyramid"][0].intensity.shape),
            "frame_pyramid_levels": ef.nlevel_frame,
-           "launches": stages["loop"]}
+           "launches": stages["loop"], "launches_by_device": stages["loop_by_device"]}
     return rec, ef
 
 
@@ -834,31 +855,6 @@ def check_variants(cfglib, torch, main_fps: float) -> dict:
     return out
 
 
-class DeviceLaunches:
-    """Kernel launches by device, counted around the wrappers' launch
-    functions while it is entered (a harness instrument; `LAUNCHES` keeps
-    the path's totals)."""
-
-    def __init__(self, rt):
-        self.rt, self.counts = rt, {}
-
-    def _wrap(self, name, fn):
-        def counted(lib, entries, *args):
-            key = f"{name}:{entries.device}"
-            self.counts[key] = self.counts.get(key, 0) + 1
-            return fn(lib, entries, *args)
-        return counted
-
-    def __enter__(self):
-        self.saved = self.rt._launch_fwd, self.rt._launch_bwd
-        self.rt._launch_fwd = self._wrap("fwd", self.saved[0])
-        self.rt._launch_bwd = self._wrap("bwd", self.saved[1])
-        return self
-
-    def __exit__(self, *exc):
-        self.rt._launch_fwd, self.rt._launch_bwd = self.saved
-
-
 def batched_step_ms(ef) -> float:
     """Median device-clock milliseconds (CUDA events on the first GPU,
     whose Adam step waits for every GPU's gradients) of the window-batched
@@ -920,10 +916,8 @@ def check_mesh(cfglib, torch, n_frames: int = 24, multi_only: bool = False) -> d
         rec["batched_step_ms"] = batched_step_ms(ef)
         out[f"mesh1_window{n}"] = rec
         del ef
-        with DeviceLaunches(rt) as per_device:
-            rec, ef = variant_run(cfglib, torch, f"mesh{n}", cfglib.merge(window, {"System": {"mesh_devices": n}}),
-                                  n_frames)
-        rec["launches_by_device"] = per_device.counts
+        rec, ef = variant_run(cfglib, torch, f"mesh{n}", cfglib.merge(window, {"System": {"mesh_devices": n}}),
+                              n_frames)
         rec["traj_max_abs_diff"] = float(np.abs(ef._traj_np("est") - base).max())
         rec["batched_step_ms"] = batched_step_ms(ef)
         # the backward on the last GPU against its plain version
@@ -947,8 +941,9 @@ def check_mesh(cfglib, torch, n_frames: int = 24, multi_only: bool = False) -> d
         rec["bwd_last_gpu"] = {"device": str(last), "max_rel_err": rel, "max_abs_err": ab, "tol": BWD_TOL}
         out[f"mesh{n}"] = rec
         del ef
-        missing = [f"{k}:cuda:{i}" for k in ("fwd", "bwd") for i in range(n)
-                   if per_device.counts.get(f"{k}:cuda:{i}", 0) <= 0]
+        by_device = rec["launches_by_device"]
+        missing = [f"{k}:cuda:{i}" for k in ("composite_fwd", "composite_bwd") for i in range(n)
+                   if by_device.get(f"{k}:cuda:{i}", 0) <= 0]
         if missing:
             fail(f"mesh: no launches of {missing} on the {n}-GPU run")
         if not rec["traj_max_abs_diff"] <= 5e-4:
@@ -970,6 +965,194 @@ def check_mesh(cfglib, torch, n_frames: int = 24, multi_only: bool = False) -> d
         fail(f"mesh: 2 shards differ from one by {out['mesh2_on_gpu0']['traj_max_abs_diff']} in the trajectory")
     shutil.rmtree(SMOKE_RUNS, ignore_errors=True)
     return out
+
+
+# entry() on the card against the CPU: the loss (relative), each gradient
+# (relative to its field's largest) and the share of gradients allowed past
+# ENTRY_TOL; see `entry_card_vs_cpu`
+ENTRY_TOL = 1e-4
+ENTRY_GRAD_TOL = 2e-2
+ENTRY_GRAD_SHARE = 0.01
+
+
+def entry_loss_grads(torch, tentry, device: str, dtype=None):
+    """((loss, gradients), fwd_bwd) of `entry()`'s function on `device`:
+    the loss and its gradients w.r.t. the three map fields, and the call
+    that computes them. With `dtype` (float64), the same function on the
+    example map and arguments cast to it."""
+    from eggfusion_tpu_torch.core.surfels import FIELDS
+
+    fn, args = tentry.entry(device=device)
+    if dtype is not None:
+        s, intr, W, H = tentry._example_state(device=device)
+        s = s.replace(**{f: getattr(s, f).to(dtype) for f in FIELDS if getattr(s, f).is_floating_point()})
+        fn, args = tentry._loss_fn(s, intr.to(dtype), W, H), [a.to(dtype) for a in args]
+    args = [a.detach().clone().requires_grad_(i < 3) for i, a in enumerate(args)]
+
+    def fwd_bwd():
+        loss = fn(*args)
+        return loss.detach(), torch.autograd.grad(loss, args[:3])
+
+    return fwd_bwd(), fwd_bwd
+
+
+def entry_card_vs_cpu(torch, tentry) -> tuple[dict, object]:
+    """`entry()` on the card against the same function on CPU tensors: the
+    loss within ENTRY_TOL (relative); every gradient within ENTRY_GRAD_TOL
+    of its field's largest CPU value, and all but ENTRY_GRAD_SHARE of them
+    within ENTRY_TOL. Float32 gradients of a few surfels are ill-conditioned
+    (the CPU's own are up to ~5e-3 of the largest off their float64
+    evaluation, reported beside), so a card that sums in another order
+    lands as far off there. Returns the record and the card's forward +
+    backward call."""
+    (loss_g, grads_g), fwd_bwd_g = entry_loss_grads(torch, tentry, "cuda")
+    (loss_c, grads_c), _ = entry_loss_grads(torch, tentry, "cpu")
+    (_, grads_64), _ = entry_loss_grads(torch, tentry, "cpu", torch.float64)
+    rec = {"loss": float(loss_g), "loss_cpu": float(loss_c),
+           "loss_rel_err": abs(float(loss_g) - float(loss_c)) / max(abs(float(loss_c)), 1e-30),
+           "finite": bool(torch.isfinite(loss_g)) and all(bool(torch.isfinite(g).all()) for g in grads_g),
+           "grad_max_rel_err": 0.0, "grad_share_off": 0.0, "card_grad_rel_err_vs_f64": 0.0,
+           "cpu_grad_rel_err_vs_f64": 0.0, "tol": ENTRY_TOL, "grad_tol": ENTRY_GRAD_TOL,
+           "grad_share_tol": ENTRY_GRAD_SHARE}
+    for g, c, c64 in zip(grads_g, grads_c, grads_64):
+        g, c = g.cpu().double(), c.double()
+        scale = float(c.abs().max())
+        rec["grad_max_rel_err"] = max(rec["grad_max_rel_err"], float((g - c).abs().max()) / scale)
+        rec["grad_share_off"] = max(rec["grad_share_off"], float(((g - c).abs() > ENTRY_TOL * scale).double().mean()))
+        rec["card_grad_rel_err_vs_f64"] = max(rec["card_grad_rel_err_vs_f64"], float((g - c64).abs().max()) / scale)
+        rec["cpu_grad_rel_err_vs_f64"] = max(rec["cpu_grad_rel_err_vs_f64"], float((c - c64).abs().max()) / scale)
+    rec["ok"] = (rec["finite"] and rec["loss_rel_err"] <= ENTRY_TOL and rec["grad_max_rel_err"] <= ENTRY_GRAD_TOL
+                 and rec["grad_share_off"] <= ENTRY_GRAD_SHARE)
+    return rec, fwd_bwd_g
+
+
+def check_dryrun(cfglib, torch) -> dict:
+    """Phase "dryrun": the port's entry points
+    (`eggfusion_tpu_torch.entry`). `entry()` on the card: loss and
+    gradients finite and close to the same function on CPU tensors
+    (`entry_card_vs_cpu`), its forward + backward timed (CUDA events);
+    `dryrun_multichip(1)` and the same dryrun on 2 shards placed on cuda:0,
+    each with the launch counts zeroed just before and read just after: the dryrun's own
+    assertions hold, the trajectories agree within 5e-4, both compositors
+    ran; then every kernel against its plain version on the 1-GPU dryrun's
+    final map at the dryrun's caps (256 model render, 128 opt step).
+    Without `cv2` or `pyk4a`, the OpenCV frontend or the live Azure Kinect
+    dataset must raise its `RuntimeError`; where a library is importable,
+    the line says so (and the OpenCV frontend is built)."""
+    import importlib.util
+
+    from eggfusion_tpu_torch import entry as tentry
+    from eggfusion_tpu_torch.core.sparse_init import SparseInitializer
+    from eggfusion_tpu_torch.data.datasets import load_dataset
+    from eggfusion_tpu_torch.geometry.camera import CameraIntrinsics
+    from eggfusion_tpu_torch.ops import raster_tile as rt
+    from eggfusion_tpu_torch.parallel import mesh as pmesh
+
+    out = {}
+    # ---- entry(): the card against the CPU ----
+    out["entry"], fwd_bwd = entry_card_vs_cpu(torch, tentry)
+    times = cuda_times(fwd_bwd, reps=10)
+    out["entry"].update(fwd_bwd_ms=statistics.median(times), fwd_bwd_ms_min_max=[min(times), max(times)])
+    # ---- dryrun_multichip(1), then 2 shards on cuda:0; the systems the
+    # dryruns ran are kept (the entry point returns only its dict) ----
+    kept = []
+    real_dryrun, real_make_mesh = pmesh.dryrun, pmesh.make_mesh
+
+    def keep(*args, **kwargs):
+        result = real_dryrun(*args, **kwargs)
+        kept.append(result[1])
+        return result
+
+    pmesh.dryrun = keep
+    try:
+        for label, n in (("gpu1", 1), ("shards2_on_gpu0", 2)):
+            if n > 1:
+                pmesh.make_mesh = lambda n, device: [torch.device("cuda", 0)] * n
+            rt.reset_launch_counts()
+            rec = tentry.dryrun_multichip(n)
+            rec["launches"], rec["launches_by_device"] = dict(rt.LAUNCHES), dict(rt.LAUNCHES_BY_DEVICE)
+            out[label] = rec
+    finally:
+        pmesh.dryrun, pmesh.make_mesh = real_dryrun, real_make_mesh
+    ef1, ef2 = kept
+    base = ef1._traj_np("est")
+    out["shards2_on_gpu0"]["traj_max_abs_diff"] = float(np.abs(ef2._traj_np("est") - base).max())
+    # ---- the kernels on the dryrun's final map, at its caps ----
+    cfg = ef1.cfg
+    intr = CameraIntrinsics.from_calibration(cfg.Dataset.Calibration)
+    w2c = torch.as_tensor(np.linalg.inv(base[-1]).astype(np.float32), device="cuda")
+    view = map_view(torch, ef1.mapper.surfels, w2c, intr.as_tensor("cuda"), intr.width, intr.height)
+    check = check_view(torch, view, timed=False, phase="dryrun_check", cap=int(cfg.System.raster_cap),
+                       opt_cap=int(cfg.System.opt_raster_cap))
+    out["check"] = {k: {f: v[f] for f in ("cap", "max_abs_err", "max_rel_err") if f in v}
+                    for k, v in check.items() if isinstance(v, dict)}
+    del kept[:], ef1, ef2
+    # ---- the frontends that need a library: OpenCV, pyk4a ----
+    for name, module, build in (
+            ("opencv", "cv2", lambda: SparseInitializer(cfglib.default_config(Tracking={"sparse_backend": "opencv"}))),
+            ("kinect_live", "pyk4a",
+             lambda: load_dataset(cfglib.default_config(Dataset={"type": "kinect_live", "preload": False}), "cuda"))):
+        if importlib.util.find_spec(module) is not None:
+            if module == "cv2":  # needs no camera: build it
+                out[name] = f"cv2 is importable here: built {type(build()).__name__}"
+            else:
+                out[name] = f"{module} is importable here: not built (it opens a camera)"
+            continue
+        try:
+            build()
+        except RuntimeError as e:
+            out[name] = f"raised RuntimeError: {e}"
+        else:
+            fail(f"dryrun: {name} without {module} did not raise")
+    emit({"phase": "dryrun", **out})
+    e = out["entry"]
+    if not e["ok"]:
+        fail(f"dryrun: entry() on the card: finite {e['finite']}, loss {e['loss_rel_err']} off the CPU, "
+             f"gradients up to {e['grad_max_rel_err']}, a share {e['grad_share_off']} past {ENTRY_TOL}")
+    for label in ("gpu1", "shards2_on_gpu0"):
+        for k in ("composite_fwd", "composite_bwd"):
+            if out[label]["launches"][k] <= 0:
+                fail(f"dryrun: kernel {k} was never launched on {label}")
+    if not out["shards2_on_gpu0"]["traj_max_abs_diff"] <= 5e-4:
+        fail(f"dryrun: 2 shards differ from one GPU by {out['shards2_on_gpu0']['traj_max_abs_diff']}")
+    return out
+
+
+def check_scaling(torch) -> dict:
+    """`--phase scaling`: `eggfusion_tpu_torch.mesh_scaling`'s table on 1,
+    2 and 4 GPUs (those visible): at the JAX dryrun's size and window (128x64,
+    8 frames, 8192 surfels, a window of 3); then at 640x480 over 32 frames
+    with a 262144-surfel map and a window of min(4, GPUs) (one member per
+    GPU), as the dryrun configures it, without the pixel-sharded tracker,
+    at the port's default slab caps (2048, 1024), and with both changes.
+    Each table goes to its own file under chiprun_out/. Fails unless every
+    GPU that holds a window member launched both compositors. Trajectory
+    differences across device counts are reported, not held: at the
+    dryrun's slab caps (256, 128) the sub-columns overflow, where float
+    sums in another order can tip a frame's tracking (phases "dryrun" and
+    "mesh" hold the agreement)."""
+    from eggfusion_tpu_torch import mesh_scaling
+
+    vga = ["--width", "640", "--height", "480", "--frames", "32", "--max-surfels", "262144",
+           "--window", str(max(3, min(4, torch.cuda.device_count())))]
+    caps = ["--raster-cap", "2048", "--opt-raster-cap", "1024"]
+    tables = {}
+    for label, args in (("mesh_scaling_torch", []),
+                        ("mesh_scaling_torch_640x480", vga),
+                        ("mesh_scaling_torch_640x480_no_shard", vga + ["--no-shard-tracking"]),
+                        ("mesh_scaling_torch_640x480_cap2048", vga + caps),
+                        ("mesh_scaling_torch_640x480_cap2048_no_shard", vga + caps + ["--no-shard-tracking"])):
+        t = mesh_scaling.main(args + ["--out", os.path.join(OUT_DIR, label + ".json")])
+        tables[label] = t
+        for r in t["rows"]:
+            emit({"phase": "scaling", "table": label,
+                  **{k: v for k, v in r.items() if k not in ("frame_s", "window_sizes", "overrides")}})
+            busy = min(r["n_devices"], r["window"])
+            idle = [f"{k}:cuda:{i}" for k, per in r["launches_by_gpu"].items() for i in range(busy)
+                    if i >= len(per) or per[i] <= 0]
+            if idle:
+                fail(f"scaling: {label} on {r['n_devices']} GPUs: no launches of {idle}")
+    return tables
 
 
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
@@ -1463,7 +1646,9 @@ def check_tum(cfglib, torch, n_frames: int = 60, n_compare: int = 20) -> dict:
 def main(argv: list[str]) -> None:
     import torch
 
-    # `--phase mesh`: the build and the multi-GPU part of phase "mesh" alone
+    # `--phase mesh`: the build and the multi-GPU part of phase "mesh" alone;
+    # `--phase graphs`, `--phase dryrun`: the build and that phase alone;
+    # `--phase scaling`: the build and the mesh-scaling tables
     phases = argv[argv.index("--phase") + 1:][:1] if "--phase" in argv else []
 
     if not torch.cuda.is_available():
@@ -1474,10 +1659,9 @@ def main(argv: list[str]) -> None:
     os.makedirs(OUT_DIR, exist_ok=True)
     from eggfusion_tpu_torch import config as cfglib
     from eggfusion_tpu_torch.ops import cuda_build
+    from eggfusion_tpu_torch.utils.device import gpu_name_and_limit
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
-    gpu = smi[0] if smi else "unknown"
+    gpu = gpu_name_and_limit() or "unknown"
     t0 = time.perf_counter()
     report = cuda_build.build(variants=((), cuda_build.NO_CULL))
     for name in cuda_build.SIGNATURES:
@@ -1503,6 +1687,15 @@ def main(argv: list[str]) -> None:
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return
+    if phases in (["scaling"], ["dryrun"]):
+        if phases == ["scaling"]:
+            check_scaling(torch)
+        else:
+            check_dryrun(cfglib, torch)
+        print(gpu, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
     checks = check_kernels(cfglib, torch)
     adversarial = check_adversarial(torch)
     main_run, main_stages, ef = drive(cfglib, torch, n_frames=48, burst=False, final_global_opt=True)
@@ -1517,6 +1710,7 @@ def main(argv: list[str]) -> None:
     tum = check_tum(cfglib, torch)
     variants = check_variants(cfglib, torch, main_run["fps_after_frame0"])
     mesh = check_mesh(cfglib, torch)
+    dryrun = check_dryrun(cfglib, torch)
     graphs = check_graphs(cfglib, torch)
     by_path = {"main": main_stages["loop"], "finish": main_stages["finish"], "eval": main_stages["eval"],
                "burst": burst_stages["loop"], "recovery": recovery["launches"], "resume": resume["launches"],
@@ -1525,6 +1719,7 @@ def main(argv: list[str]) -> None:
                "settled_skip": variants["settled_skip"]["launches"],
                "early_exit": variants["early_exit"]["launches"],
                **{label: r["launches"] for label, r in mesh.items() if isinstance(r, dict)},
+               "dryrun": dryrun["gpu1"]["launches"], "dryrun_shards2_on_gpu0": dryrun["shards2_on_gpu0"]["launches"],
                "graphs_eager": graphs["eager"]["launches"], "graphs": graphs["graphs"]["launches"],
                "bench": graphs["bench"]["launches"]}
 
@@ -1548,8 +1743,8 @@ def main(argv: list[str]) -> None:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"gpu": gpu, "checks": checks, "adversarial": adversarial, "main": main_run,
                    "finish": finish, "burst": burst_run, "recovery": recovery, "resume": resume,
-                   "tum": tum, "variants": variants, "mesh": mesh, "frustum": frustum, "graphs": graphs,
-                   "kernels": kernels},
+                   "tum": tum, "variants": variants, "mesh": mesh, "dryrun": dryrun, "frustum": frustum,
+                   "graphs": graphs, "kernels": kernels},
                   f, indent=1)
     emit({"kernels": kernels})
     print(gpu, flush=True)

@@ -958,7 +958,8 @@ class Mapping:
             self.maintain_map(defer=True)
 
         if self.time % self.mcfg.sw_add_freq == 0 and not suspect:
-            self.keyframe_manager.sliding_window.append(KeyFrame(frame, frame_map, self.time, -1))
+            self.keyframe_manager.sliding_window.append(
+                KeyFrame(frame, frame_map, self.time, -1, self.keyframe_manager.storage))
         if suspect:
             pass  # no keyframe decisions from a failure-streak pose
         elif opt_frame:

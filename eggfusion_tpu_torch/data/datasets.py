@@ -1,6 +1,6 @@
 """RGB-D datasets (port of `eggfusion_tpu/data/datasets.py`): TUM RGB-D,
-Replica, ScanNet++ and Azure Kinect recordings on disk, and the synthetic
-sequence.
+Replica, ScanNet++ and Azure Kinect recordings on disk, a live Azure Kinect
+camera (`pyk4a`), and the synthetic sequence.
 
 The on-disk datasets share `RGBDDataset`: the calibration, the
 undistortion map of the radial-tangential lens model with its validity
@@ -324,6 +324,38 @@ class AzureKinectDataset(RGBDDataset):
         return self.ts[idx], color, depth, np.ones((H, W, 1), bool), self.poses[idx]
 
 
+class AzureKinectLive(RGBDDataset):
+    """A live Azure Kinect camera (`Dataset.type: kinect_live`) through
+    `pyk4a`, imported when the dataset is built (raises without it): 720p
+    color, 2x2-binned wide depth mapped into the color camera, resized to
+    the calibration's size (linear color, nearest depth); `max_frames`
+    items (default 10000), no ground truth (identity poses)."""
+
+    def __init__(self, config):
+        try:
+            import pyk4a
+            from pyk4a import Config as K4AConfig, PyK4A
+        except ImportError as e:
+            raise RuntimeError("AzureKinectLive requires pyk4a") from e
+        super().__init__(config)
+        self.k4a = PyK4A(K4AConfig(
+            color_resolution=pyk4a.ColorResolution.RES_720P,
+            depth_mode=pyk4a.DepthMode.WFOV_2X2BINNED,
+        ))
+        self.k4a.start()
+        self.n_imgs = int(config.Dataset.get("max_frames", 10_000))
+        self.depth_scale = 1000.0
+
+    def __getitem__(self, idx: int):
+        W, H = self.intrinsics.width, self.intrinsics.height
+        capture = self.k4a.get_capture()
+        color = capture.color[:, :, 2::-1].copy()  # BGRA -> RGB
+        ts = capture.color_timestamp_usec / 1e6
+        color = resize_linear(color, W, H)
+        depth = resize_nearest(capture.transformed_depth, W, H)
+        return ts, color, depth, np.ones((H, W, 1), bool), np.eye(4)
+
+
 class SyntheticDataset:
     """Analytic synthetic sequence with exact GT (see `data.synthetic`):
     `Dataset.trajectory` (sway, handheld, loop, orbit) drawn from
@@ -388,9 +420,10 @@ class SyntheticDataset:
 
 def load_dataset(config, device, test: bool = False):
     """The dataset `Dataset.type` names: tum, replica, scannetpp (`test`:
-    its test split), azure or synthetic. Stamps the pyramid depth and the
-    bilateral mode the frames need and, unless `Dataset.preload` is off,
-    starts the prefetch of an on-disk dataset."""
+    its test split), azure, kinect_live or synthetic. Stamps the pyramid
+    depth and the bilateral mode the frames need and, unless
+    `Dataset.preload` is off, starts the prefetch of an on-disk dataset or
+    camera."""
     kind = config.Dataset.type
     if kind == "synthetic":
         ds = SyntheticDataset(config, device)
@@ -403,7 +436,7 @@ def load_dataset(config, device, test: bool = False):
     elif kind == "azure":
         ds = AzureKinectDataset(config)
     elif kind == "kinect_live":
-        raise NotImplementedError("dataset type 'kinect_live' (a live Azure Kinect camera) is not ported")
+        ds = AzureKinectLive(config)
     else:
         raise ValueError(f"Unknown dataset type: {kind}")
     # the frame pyramid's depth: extra levels when the model view renders

@@ -54,13 +54,22 @@ A_NX, A_NY, A_NZ = 9, 10, 11
 A_PX, A_PY, A_PZ = 12, 13, 14
 N_ATTR = 16
 
-# launches of each CUDA kernel; the plain versions do not count
+# launches of each CUDA kernel, in all and by device ("composite_fwd:cuda:1");
+# the plain versions do not count
 LAUNCHES = {"composite_fwd": 0, "composite_geom": 0, "composite_bwd": 0}
+LAUNCHES_BY_DEVICE: dict[str, int] = {}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_DEVICE.clear()
+
+
+def _count_launch(name: str, dev: torch.device) -> None:
+    LAUNCHES[name] += 1
+    key = f"{name}:{dev}"
+    LAUNCHES_BY_DEVICE[key] = LAUNCHES_BY_DEVICE.get(key, 0) + 1
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -430,7 +439,8 @@ def composite_bwd_plain(entries, counts, intr, g_rgb, g_nrm, g_dep, g_opa, g_T,
                         tx_tiles: int, cap: int, tile_batch: int | None = None):
     """VJP of `composite_plain` w.r.t. the entry slab, by autograd, over
     batches of `tile_batch` tiles (tiles are independent; batching bounds
-    the memory autograd keeps)."""
+    the memory autograd keeps). A batch whose tiles hold no entry adds
+    nothing."""
     dev = entries.device
     n_tiles = entries.shape[0]
     cot = torch.cat([g_rgb, g_nrm, g_dep[None], g_opa[None], g_T[None]], dim=0)
@@ -441,6 +451,8 @@ def composite_bwd_plain(entries, counts, intr, g_rgb, g_nrm, g_dep, g_opa, g_T,
         with torch.enable_grad():
             e = entries.detach().requires_grad_(True)
             out = composite_plain(e, counts, intr, tx_tiles, cap, tiles=tiles)
+            if not out.requires_grad:  # no slot of these tiles is read
+                continue
             (g,) = torch.autograd.grad(out, e, _image_to_tiles(cot, tx_tiles, tiles), allow_unused=True)
         if g is not None:
             d += g
@@ -488,7 +500,7 @@ def composite_fwd(entries, counts, intr, tx_tiles: int, cap: int, geom: bool = F
     from eggfusion_tpu_torch.ops import cuda_build
 
     out = _launch_fwd(cuda_build.load("composite_fwd"), entries, counts, intr, tx_tiles, cap, geom)
-    LAUNCHES["composite_geom" if geom else "composite_fwd"] += 1
+    _count_launch("composite_geom" if geom else "composite_fwd", dev)
     return out
 
 
@@ -544,7 +556,7 @@ def composite_bwd(entries, counts, intr, g_rgb, g_nrm, g_dep, g_opa, g_T, T_fin,
 
     d_entries = _launch_bwd(cuda_build.load("composite_bwd"), entries, counts, intr, g_rgb, g_nrm, g_dep,
                             g_opa, g_T, T_fin, tx_tiles, cap)
-    LAUNCHES["composite_bwd"] += 1
+    _count_launch("composite_bwd", dev)
     return d_entries
 
 

@@ -14,10 +14,15 @@ fields to every device; each device renders its keyframes with the
 production renderer and differentiates its share of the loss w.r.t. its own
 copy; the partial losses and gradients are summed on the first device in
 device order (so a run is deterministic), where the regularizer and Adam
-run. Nothing here synchronizes the host with a device. On the CPU a mesh is
-`n` shards on the one CPU device: the split and the reduction run as on
-GPUs, which is how the tests hold this module to the JAX step on the
+run. Nothing in the step synchronizes the host with a device. On the CPU a
+mesh is `n` shards on the one CPU device: the split and the reduction run
+as on GPUs, which is how the tests hold this module to the JAX step on the
 virtual CPU mesh.
+
+`run_multichip_dryrun` is the JAX module's dryrun: the product pipeline at
+128x64 for 8 frames on a mesh of n, with the JAX assertions; it waits for
+every device of the mesh after each frame to time it (`frame_s`), which
+`mesh_scaling` reads.
 """
 from __future__ import annotations
 
@@ -117,3 +122,109 @@ def make_window_opt_step(render_at, mcfg: MapperConfig, devices: list, opt_cap: 
         return s, moments, step_count + 1, img + reg.detach()
 
     return step
+
+
+def sync_devices(devices) -> None:
+    """Wait until every CUDA device of `devices` has drained its work (a
+    no-op for CPU devices)."""
+    for d in dict.fromkeys(torch.device(x) for x in devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def dryrun_config(n_devices: int, width: int, height: int, n_frames: int, max_surfels: int,
+                  overrides: dict | None = None):
+    """The configuration of `run_multichip_dryrun` (the JAX dryrun's
+    overrides of `default_config`), with `overrides` merged on top."""
+    from eggfusion_tpu_torch import config as cfglib
+
+    cfg = cfglib.default_config(
+        Dataset={
+            "type": "synthetic", "n_frames": n_frames, "preload": False,
+            "Calibration": {
+                "fx": 0.75 * width, "fy": 0.75 * width,
+                "cx": width / 2 - 0.5, "cy": height / 2 - 0.5,
+                "width": width, "height": height, "depth_scale": 1.0,
+            },
+        },
+        Viewer={"max_surfels_num": max_surfels},
+        # local_map_iter 6: one batched amortized step per frame, plus the
+        # 3-step burst of frame 0
+        Mapping={"local_map_iter_init": 3, "local_map_iter": 6,
+                 "sample_ratio": 0.05, "sample_ratio_init": 0.2},
+        Surfel={"max_sh_degree": 0, "active_sh_degree": 0},
+        # the tile compositor ("pallas") at the JAX dryrun's small slab caps
+        System={"mesh_devices": n_devices, "render_backend": "pallas",
+                "save_dir": "results/multichip_dryrun_torch",
+                "raster_cap": 256, "opt_raster_cap": 128,
+                "adaptive_model_cap": False, "final_global_opt": False},
+    )
+    return cfglib.merge(cfg, overrides or {})
+
+
+def dryrun(cfg, device=None, verbose: bool = True) -> tuple:
+    """`run_multichip_dryrun` on configuration `cfg` (`dryrun_config`);
+    returns (its result, the `EGGFusion` it ran, the sliding window's size
+    after each frame)."""
+    import time
+
+    import numpy as np
+
+    from eggfusion_tpu_torch.data.datasets import load_dataset
+    from eggfusion_tpu_torch.main import build_frame
+    from eggfusion_tpu_torch.system import EGGFusion
+    from eggfusion_tpu_torch.utils import eval as evalu
+
+    n_devices = int(cfg.System.mesh_devices)
+    n_frames = int(cfg.Dataset.n_frames)
+    t0 = time.perf_counter()
+    ef = EGGFusion(cfg, device=device)
+    dataset = load_dataset(cfg, ef.device)
+    mesh = ef.mapper.devices
+    frame_s, window = [], []
+    for fid in range(n_frames):
+        t_frame = time.perf_counter()
+        ef.reconstruct(build_frame(dataset, fid, False, ef.device, nlevel=ef.nlevel_frame, programs=ef.programs))
+        sync_devices(mesh)
+        frame_s.append(time.perf_counter() - t_frame)
+        window.append(len(ef.mapper.keyframe_manager.sliding_window))
+    wall = time.perf_counter() - t0
+
+    ref = ef._traj_np("ref")[:, :3, 3]
+    est = ef._traj_np("est")[:, :3, 3]
+    ate = evalu.ate_rmse(ref, est)
+    fused = max((f for f, _e in ef.mapper.fusion_stats.values()), default=0)
+    n_surf = int(ef.mapper.surfels.num_active())
+    assert np.isfinite(ate), "multichip run produced a non-finite trajectory"
+    assert fused > 100, f"sharded window optimization ran but fusion only associated {fused} px"
+    assert n_surf > 500, f"map did not populate ({n_surf} surfels)"
+    opt_steps = ef.mapper.opt_steps_total
+    assert opt_steps >= 4, f"dryrun must exercise >= 4 sharded opt steps (got {opt_steps})"
+    result = {
+        "n_devices": n_devices, "width": int(cfg.Dataset.Calibration.width),
+        "height": int(cfg.Dataset.Calibration.height),
+        "n_frames": n_frames, "ate_cm": round(float(ate), 4),
+        "surfels": n_surf, "max_fused_px": int(fused),
+        "wall_s": round(wall, 1),
+        "opt_steps": opt_steps,
+        "frame_s": frame_s,
+    }
+    if verbose:
+        print(f"multichip dryrun ok on {n_devices} devices: {result}")
+    return result, ef, window
+
+
+def run_multichip_dryrun(n_devices: int, width: int = 128, height: int = 64, n_frames: int = 8,
+                         max_surfels: int = 8192, verbose: bool = True, device=None) -> dict:
+    """Drive the product pipeline (`EGGFusion.reconstruct`) over a mesh of
+    `n_devices` (the JAX `run_multichip_dryrun`): the synthetic corner
+    sequence with `System.mesh_devices = n`, so every frame's window
+    optimization runs the window-batched, keyframe-sharded step. On CUDA the
+    mesh is `n` GPUs (raises when fewer are visible) and the tile compositor
+    renders; on the CPU, `n` shards of the CPU device. Asserts the JAX
+    dryrun's bounds (finite ATE, > 100 fused px, > 500 surfels, >= 4 opt
+    steps) and returns its dict plus `frame_s`: each frame's wall seconds,
+    taken after every device of the mesh has drained."""
+    cfg = dryrun_config(n_devices, width, height, n_frames, max_surfels)
+    result, _ef, _window = dryrun(cfg, device, verbose)
+    return result

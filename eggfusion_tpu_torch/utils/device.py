@@ -1,11 +1,27 @@
-"""Device selection and host readbacks that do not stall the device queue.
+"""Device selection, the GPU's name and power limit, and host readbacks that
+do not stall the device queue.
 
 No JAX counterpart: JAX picks its platform globally and starts async copies
 with `Array.copy_to_host_async`; here both are explicit.
 """
 from __future__ import annotations
 
+import subprocess
+
 import torch
+
+
+def gpu_name_and_limit() -> str | None:
+    """The first GPU's name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them, or None
+    where there is no `nvidia-smi`."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60).stdout
+    except (FileNotFoundError, subprocess.TimeoutExpired):
+        return None
+    lines = out.strip().splitlines()
+    return lines[0] if lines else None
 
 
 def resolve_device(device=None) -> torch.device:

@@ -32,10 +32,11 @@ How a `Programs` runs its programs (`mode`):
   "eager" — the function is called directly (`EGGFusion(graphs=False)`, the
             counterpart of `jax.disable_jit`).
 
-Kernel launches: `raster_tile.LAUNCHES` counts calls of the kernel wrappers,
-which a replay does not make. Each entry records the launches its capture
-made (and takes them back out: a capture launches nothing) and adds them at
-every replay, so the counts stay those of real launches.
+Kernel launches: `raster_tile.LAUNCHES` (and `LAUNCHES_BY_DEVICE`) count
+calls of the kernel wrappers, which a replay does not make. Each entry
+records the launches its capture made, by device (and takes them back out:
+a capture launches nothing) and adds them at every replay, so the counts
+stay those of real launches.
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ import time
 
 import torch
 
-from eggfusion_tpu_torch.ops.raster_tile import LAUNCHES
+from eggfusion_tpu_torch.ops.raster_tile import LAUNCHES, LAUNCHES_BY_DEVICE
 
 # eager runs of a program before its capture (on clones of its state)
 WARM_ITERS = 2
@@ -108,6 +109,16 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a.reshape(-1).contiguous().view(torch.uint8), b.reshape(-1).contiguous().view(torch.uint8))
 
 
+def _launch_counts() -> tuple[dict, dict]:
+    return dict(LAUNCHES), dict(LAUNCHES_BY_DEVICE)
+
+
+def _restore_launch_counts(saved: tuple[dict, dict]) -> None:
+    LAUNCHES.update(saved[0])
+    LAUNCHES_BY_DEVICE.clear()
+    LAUNCHES_BY_DEVICE.update(saved[1])
+
+
 def _poison(t: torch.Tensor) -> None:
     if t.dtype == torch.bool:
         t.logical_not_()
@@ -129,7 +140,7 @@ class _Entry:
         self.in_spec, self.inputs = in_spec, inputs
         self.graph = None
         self.outputs = None
-        self.launches: dict = {}
+        self.launches: dict = {}  # "kernel:device" -> launches of one replay
         self.pool_bytes = 0
         self.capture_s = 0.0
 
@@ -174,7 +185,8 @@ class Program:
             entry.load(leaves)
             entry.graph.replay()
             for k, n in entry.launches.items():
-                LAUNCHES[k] += n
+                LAUNCHES[k.split(":", 1)[0]] += n
+                LAUNCHES_BY_DEVICE[k] = LAUNCHES_BY_DEVICE.get(k, 0) + n
         self.replays += 1
         self.last = entry
         return entry.outputs
@@ -213,15 +225,16 @@ class Program:
                 self.fn(unflatten(entry.state_spec, scratch), entry.input_tree(), **entry.static)
                 del scratch
         main.wait_stream(side)
-        before = dict(LAUNCHES)
+        before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
         pool = torch.cuda.graph_pool_handle()
         with torch.cuda.device(dev), torch.cuda.graph(graph, pool=pool, stream=side,
                                                       capture_error_mode="thread_local"):
             outputs = self.fn(entry.state_tree(), entry.input_tree(), **entry.static)
         main.wait_stream(side)
-        entry.launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
-        LAUNCHES.update(before)
+        entry.launches = {k: n - before[1].get(k, 0) for k, n in LAUNCHES_BY_DEVICE.items()
+                          if n != before[1].get(k, 0)}
+        _restore_launch_counts(before)
         entry.pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                                if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
         entry.graph, entry.outputs = graph, outputs
@@ -244,7 +257,7 @@ class Program:
         e = entry or self.last
         if e is None or e.graph is None:
             raise RuntimeError(f"program {self.name}: no captured entry to check")
-        counts = dict(LAUNCHES)
+        counts = _launch_counts()
         start = [t.clone() for t in e.state]
         e.graph.replay()
         out_g = [t.clone() for t in flatten(e.outputs)[1]]
@@ -252,7 +265,7 @@ class Program:
         for t, t0 in zip(e.state, start):
             t.copy_(t0)
         out_e = flatten(self.fn(e.state_tree(), e.input_tree(), **e.static))[1]
-        LAUNCHES.update(counts)
+        _restore_launch_counts(counts)
         out_eq = len(out_e) == len(out_g) and all(same_bits(a, b) for a, b in zip(out_e, out_g))
         state_eq = all(same_bits(a, b) for a, b in zip(e.state, state_g))
         return {"program": self.name, "outputs": len(out_g), "state": len(state_g),

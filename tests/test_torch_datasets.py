@@ -219,10 +219,16 @@ def test_prefetch_raises_read_errors(trees, tmp_path):
         ds.get_buffer_frame()
 
 
-def test_unported_kinds_raise(trees):
-    with pytest.raises(NotImplementedError, match="kinect_live"):
+def test_unported_kinds_raise(trees, monkeypatch):
+    """The live camera and the OpenCV frontend raise, as in JAX, when their
+    library is missing (both are ported: `tests/test_torch_frontends.py`)."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "pyk4a", None)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(RuntimeError, match="pyk4a"):
         t_datasets.load_dataset(tcfg.merge(_cfg(tcfg, trees, "azure"), {"Dataset": {"type": "kinect_live"}}), "cpu")
-    with pytest.raises(NotImplementedError, match="opencv"):
+    with pytest.raises(RuntimeError, match="OpenCV"):
         t_sparse_init.SparseInitializer(tcfg.default_config(Tracking={"sparse_backend": "opencv"}))
 
 

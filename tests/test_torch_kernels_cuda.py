@@ -165,3 +165,26 @@ def test_kernels_on_the_last_gpu(cuda):
     d_k = _check_backward(last, entries, counts, intr, tx, cap)
     assert torch.isfinite(d_k).all()
     assert torch.cuda.current_device() == 0
+
+
+def test_entry_on_the_card(cuda):
+    """`entry()` on the card against CPU tensors, as `chip_smoke.py` phase
+    "dryrun" holds it (`entry_card_vs_cpu`): loss within 1e-4; gradients
+    within 2e-2 of their field's largest value, 99 % of them within 1e-4."""
+    from chip_smoke import entry_card_vs_cpu
+    from eggfusion_tpu_torch import entry as tentry
+
+    rec, _ = entry_card_vs_cpu(torch, tentry)
+    assert rec["ok"], rec
+
+
+def test_dryrun_on_the_card(cuda):
+    """`dryrun_multichip(1)` on the card: its assertions hold, and both
+    compositors launched on cuda:0."""
+    from eggfusion_tpu_torch import entry as tentry
+
+    rt.reset_launch_counts()
+    r = tentry.dryrun_multichip(1)
+    assert r["n_devices"] == 1 and len(r["frame_s"]) == r["n_frames"] == 8
+    assert rt.LAUNCHES["composite_fwd"] > 0 and rt.LAUNCHES["composite_bwd"] > 0
+    assert rt.LAUNCHES_BY_DEVICE["composite_fwd:cuda:0"] > 0 and rt.LAUNCHES_BY_DEVICE["composite_bwd:cuda:0"] > 0

@@ -291,8 +291,9 @@ def test_nan_keyframe_map_raises(tmp_path):
 
 
 def test_keyframe_host_storage(tmp_path):
-    """`System.keyframe_storage: host` keeps numpy maps and uploads the same
-    values on demand."""
+    """`System.keyframe_storage: host` keeps numpy maps, for the keyframes
+    and for the sliding window's members (as the JAX mapper builds them),
+    and uploads the same values on demand."""
     cfg = _cfg(tcfg, tmp_path, keyframe_storage="host")
     dataset = t_load_dataset(cfg, "cpu")
     ef = TEGGFusion(cfg, device="cpu")
@@ -300,6 +301,10 @@ def test_keyframe_host_storage(tmp_path):
     ef.reconstruct(frame)
     kf = ef.mapper.keyframe_manager.keyframes[0]
     assert kf.storage == "host" and all(isinstance(v, np.ndarray) for v in kf.maps.values())
+    window = list(ef.mapper.keyframe_manager.sliding_window)
+    assert window
+    for member in window:
+        assert member.storage == "host" and all(isinstance(v, np.ndarray) for v in member.maps.values())
     dev = KeyFrame(frame, ef.frame_map, 0, 0).device_maps()
     for k, v in kf.device_maps().items():
         assert torch.equal(v, dev[k]), k

@@ -270,6 +270,25 @@ def test_plain_backward_matches_finite_difference():
         assert abs(fd - an) <= 0.01 * abs(an), (k, fd, an)
 
 
+def test_plain_backward_of_empty_tiles():
+    """The plain backward gives zero gradients for tile batches whose tiles
+    hold no entry (an opt step's tile subset can keep only such tiles),
+    and still the gradients of the other batches."""
+    from eggfusion_tpu_torch.ops.raster_slabs import random_slab
+
+    entries, counts, intr, tx = random_slab(64)
+    counts[:2] = 0  # the first tile batch is empty
+    outs = trt.composite_fwd(entries, counts, intr, tx, 64)
+    g = torch.Generator().manual_seed(3)
+    cots = [torch.randn(o.shape, generator=g) for o in outs]
+    d = trt.composite_bwd_plain(entries, counts, intr, *cots, tx, 64, tile_batch=2)
+    assert float(d[:2].abs().max()) == 0.0 and float(d[2:].abs().max()) > 0
+    whole = trt.composite_bwd_plain(entries, counts, intr, *cots, tx, 64)
+    torch.testing.assert_close(d, whole, rtol=1e-5, atol=1e-6)
+    empty = torch.zeros_like(counts)
+    assert float(trt.composite_bwd_plain(entries, empty, intr, *cots, tx, 64).abs().max()) == 0.0
+
+
 def test_count_live_pairs():
     """The live-pair count that bounds the kernels' work: slots of opacity
     0.5 with a near-flat footprint are live on all 32x32 pixels of their
