@@ -89,16 +89,24 @@ Run from the root of a checkout. Phases, each printing one JSON line:
               (< 3 cm with the early exit), the cap-4096 map stays under
               200k surfels, a render was skipped and both kernels ran;
   9. mesh   — the window-batched, keyframe-sharded optimization with
-              pixel-sharded tracking (`System.mesh_devices`), 24 frames: on
-              one GPU, then with 2 shards both on cuda:0 (trajectory within
-              5e-4 of the first), 7 frames of the burst schedule with the
-              1/2 view under a mesh (the geometry-only kernel must run),
-              then, with 2 or more GPUs, on min(4, count)
-              GPUs (the same agreement, both kernels launched on every GPU,
-              the backward held to its plain version on the last one; with
-              one GPU the line says so); fails unless ATE < 1 cm and batched
-              steps ran. `python3 chip_smoke.py --phase mesh` runs the build
-              and the multi-GPU part alone.
+              pixel-sharded tracking (`System.mesh_devices`), 24 frames
+              each eager and on CUDA graphs: on one GPU, then with 2 shards
+              both on cuda:0 (trajectory within 5e-4 of the first), 7
+              frames of the burst schedule with the 1/2 view under a mesh
+              (the geometry-only kernel must run), then, with 2 or more
+              GPUs, on min(4, count) GPUs (the same agreement, both kernels
+              launched on every GPU, the backward on the last one held to
+              its plain version with phase "tum_check"'s float64 band and
+              to the same launch on cuda:0 bit for bit; with one GPU the
+              line says so); fails unless
+              ATE < 1 cm, batched steps ran, each graph run is bit-equal to
+              its eager twin, captures nothing after the frame that fills
+              its window and launches each kernel on each GPU as often as
+              its eager twin once the eager runs before its captures are
+              set apart; prints host launch calls a frame (3 profiled
+              frames) and the batched step's ms in both.
+              `python3 chip_smoke.py --phase mesh` runs the build and the
+              multi-GPU part alone.
  10. dryrun — the entry points (`eggfusion_tpu_torch.entry`, the
               counterparts of `__graft_entry__.py`):
               `entry()` (one render of `render_xla` plus the mapping loss) on
@@ -858,7 +866,8 @@ def check_variants(cfglib, torch, main_fps: float) -> dict:
 def batched_step_ms(ef) -> float:
     """Median device-clock milliseconds (CUDA events on the first GPU,
     whose Adam step waits for every GPU's gradients) of the window-batched
-    step on the run's final map and window, after the run."""
+    step on the run's final map and window, after the run (on graphs: its
+    programs' replays)."""
     m = ef.mapper
     window = list(m.keyframe_manager.sliding_window)
     batch = m._window_batch(window)
@@ -866,40 +875,80 @@ def batched_step_ms(ef) -> float:
                                               m.sw_lrs, window[0].width, window[0].height), reps=5)
 
 
+def mesh_pair(cfglib, torch, label: str, overrides: dict, n_frames: int = 24) -> tuple:
+    """One mesh configuration eager and on CUDA graphs (`graphs_run`, the
+    slice configuration with `overrides`, `n_frames` + 3 profiled frames):
+    the graph run's record with the eager run's beside it (`eager`), whether
+    the two trajectories and final maps hold the same bits, the launches by
+    device of the graph run less its capture runs' (`launches_by_device_net`)
+    and whether they equal the eager run's, and the batched step's ms in
+    both, with the graph run's trajectory under "traj". Returns it and the
+    graph run's system (the eager one is dropped before it starts)."""
+    from eggfusion_tpu_torch.core.surfels import FIELDS
+    from eggfusion_tpu_torch.utils.graphs import same_bits
+
+    eager, ef, traj_e, map_e = graphs_run(cfglib, torch, False, n_frames, overrides=overrides, name=label)
+    # the amortized schedule's window step (the burst schedule keeps no
+    # window state between its optimization frames)
+    eager["batched_step_ms"] = batched_step_ms(ef) if ef.mapper._opt_geo is not None else None
+    del ef
+    rec, ef, traj_g, map_g = graphs_run(cfglib, torch, None, n_frames, overrides=overrides, name=label)
+    rec["batched_step_ms"] = batched_step_ms(ef) if ef.mapper._opt_geo is not None else None
+    net = {k: n - rec["capture_warm_launches"].get(k, 0) for k, n in rec["launches_by_device"].items()}
+    net = {k: n for k, n in net.items() if n}
+    rec.update(label=label, eager=eager, trajectory_bit_equal=traj_e.tobytes() == traj_g.tobytes(),
+               map_fields_differing=[f for f in FIELDS if not same_bits(map_e[f], map_g[f])],
+               launches_by_device_net=net, launches_equal_eager=net == eager["launches_by_device"],
+               replays={k: v["replays"] for k, v in ef.programs.stats().items() if v["replays"]})
+    emit({"phase": "mesh_pair", "label": label, **{k: rec[k] for k in (
+        "trajectory_bit_equal", "map_fields_differing", "captures_after_window_full", "launches_equal_eager",
+        "host_launches_per_frame", "ms_per_frame_after_frame0", "ms_per_frame_after_window_full", "batched_step_ms",
+        "ate_cm")},
+        "eager": {k: eager[k] for k in ("host_launches_per_frame", "ms_per_frame_after_frame0",
+                                        "ms_per_frame_after_window_full", "batched_step_ms")}})
+    rec["traj"] = traj_g
+    return rec, ef
+
+
 def check_mesh(cfglib, torch, n_frames: int = 24, multi_only: bool = False) -> dict:
     """Phase "mesh": the window-batched, keyframe-sharded optimization with
     pixel-sharded tracking (`System.mesh_devices`), 24 frames of the slice
-    configuration: on one GPU; with 2 shards both placed on cuda:0 (the
-    split and the reduction without a second card), which must give the
-    first run's trajectory within 5e-4; and, with 2 or more GPUs visible, on
-    n = min(4, count) GPUs with a window of n keyframes against the same
-    window on one GPU: the same agreement, both kernels launched on every
-    GPU, and the backward held to its plain version on the last GPU."""
+    configuration, each run eager and on CUDA graphs (`mesh_pair`): on one
+    GPU; with 2 shards both placed on cuda:0 (the split and the reduction
+    without a second card), which must give the first run's trajectory
+    within 5e-4; 7 frames of the burst schedule with the 1/2 view on one
+    GPU; and, with 2 or more GPUs visible, on n = min(4, count) GPUs with a
+    window of n keyframes against the same window on one GPU (on graphs):
+    the same agreement, both kernels launched on every GPU, and the backward
+    on the last GPU held to its plain version (with the float64 band of
+    `check_view`) and bit for bit to the same launch on cuda:0. Every pair must be bit-equal,
+    capture nothing after the frame that fills the window, and launch each
+    kernel on each GPU as often as eager once the capture runs' launches
+    are set apart; the line gives host launch calls a frame in both."""
     from eggfusion_tpu_torch.ops import raster_tile as rt
     from eggfusion_tpu_torch.parallel import mesh as pmesh
 
     out = {}
     if not multi_only:
-        rec, ef = variant_run(cfglib, torch, "mesh1", {"System": {"mesh_devices": 1}}, n_frames)
-        base = ef._traj_np("est")
-        rec["batched_step_ms"] = batched_step_ms(ef)
+        rec, ef = mesh_pair(cfglib, torch, "mesh1", {"System": {"mesh_devices": 1}}, n_frames)
+        base = rec.pop("traj")
         out["mesh1"] = rec
         del ef
         real_make_mesh = pmesh.make_mesh
         pmesh.make_mesh = lambda n, device: [torch.device("cuda", 0)] * n
         try:
-            rec, ef = variant_run(cfglib, torch, "mesh2_on_gpu0", {"System": {"mesh_devices": 2}}, n_frames)
+            rec, ef = mesh_pair(cfglib, torch, "mesh2_on_gpu0", {"System": {"mesh_devices": 2}}, n_frames)
         finally:
             pmesh.make_mesh = real_make_mesh
-        rec["traj_max_abs_diff"] = float(np.abs(ef._traj_np("est") - base).max())
-        rec["batched_step_ms"] = batched_step_ms(ef)
+        rec["traj_max_abs_diff"] = float(np.abs(rec.pop("traj") - base).max())
         out["mesh2_on_gpu0"] = rec
         del ef
         # the burst schedule under a mesh with the 1/2 model view: frame 6
         # optimizes, its spawn render is the geometry-only kernel at 1/2
-        rec, ef = variant_run(cfglib, torch, "burst_mvdown_mesh1",
-                              {"Mapping": {"opt_schedule": "burst"}, "System": {"mesh_devices": 1, "raster_cap": 4096},
-                               "Tracking": {"model_view_down": 2, "solver_stride": 1}}, 7)
+        rec, ef = mesh_pair(cfglib, torch, "burst_mvdown_mesh1",
+                            {"Mapping": {"opt_schedule": "burst"}, "System": {"mesh_devices": 1, "raster_cap": 4096},
+                             "Tracking": {"model_view_down": 2, "solver_stride": 1}}, 7)
+        rec.pop("traj")
         out["burst_mvdown_mesh1"] = rec
         del ef
     count = torch.cuda.device_count()
@@ -910,16 +959,14 @@ def check_mesh(cfglib, torch, n_frames: int = 24, multi_only: bool = False) -> d
         # a window of n keyframes, one per GPU once it fills (a GPU whose
         # block holds only padding renders nothing), in both runs
         window = {"Tracking": {"sliding_window_size": n}}
-        rec, ef = variant_run(cfglib, torch, f"mesh1_window{n}",
-                              cfglib.merge(window, {"System": {"mesh_devices": 1}}), n_frames)
-        base = ef._traj_np("est")
+        rec, ef, base, _map = graphs_run(cfglib, torch, None, n_frames, overrides=cfglib.merge(
+            window, {"System": {"mesh_devices": 1}}), name=f"mesh1_window{n}")
         rec["batched_step_ms"] = batched_step_ms(ef)
         out[f"mesh1_window{n}"] = rec
-        del ef
-        rec, ef = variant_run(cfglib, torch, f"mesh{n}", cfglib.merge(window, {"System": {"mesh_devices": n}}),
-                              n_frames)
-        rec["traj_max_abs_diff"] = float(np.abs(ef._traj_np("est") - base).max())
-        rec["batched_step_ms"] = batched_step_ms(ef)
+        del ef, _map
+        rec, ef = mesh_pair(cfglib, torch, f"mesh{n}", cfglib.merge(window, {"System": {"mesh_devices": n}}),
+                            n_frames)
+        rec["traj_max_abs_diff"] = float(np.abs(rec.pop("traj") - base).max())
         # the backward on the last GPU against its plain version
         last = torch.device("cuda", n - 1)
         ds = ef.dataset
@@ -938,19 +985,35 @@ def check_mesh(cfglib, torch, n_frames: int = 24, multi_only: bool = False) -> d
         d_k = rt.composite_bwd(entries, counts, intr, *cots, outs[4], tx, 1024)
         d_p = rt.composite_bwd_plain(entries, counts, intr, *cots, tx, 1024, tile_batch=16)
         rel, ab = bwd_errors(d_k, d_p)
-        rec["bwd_last_gpu"] = {"device": str(last), "max_rel_err": rel, "max_abs_err": ab, "tol": BWD_TOL}
+        gpu0 = torch.device("cuda", 0)
+        d_k0 = rt.composite_bwd(entries.to(gpu0), counts.to(gpu0), intr.to(gpu0), *(c.to(gpu0) for c in cots),
+                                outs[4].to(gpu0), tx, 1024)
+        rec["bwd_last_gpu"] = {"device": str(last), "max_rel_err": rel, "max_abs_err": ab, "tol": BWD_TOL,
+                               "same_bits_on_gpu0": bool(torch.equal(d_k0.cpu(), d_k.cpu()))}
+        # as in phase "tum_check": a gradient off its float32 plain version
+        # by more than BWD_TOL passes only where the plain version is as far
+        # off its float64 evaluation (an ill-conditioned column sum)
+        if rel > BWD_TOL:
+            d_64 = rt.composite_bwd_plain(entries.double(), counts, intr.double(), *(c.double() for c in cots), tx,
+                                          1024, tile_batch=16)
+            misses, held, k64, p64_rel = bwd_misses(d_k, d_p, d_64)
+            rec["bwd_last_gpu"].update(f64_misses=misses, f64_band_held=held, rel_err_vs_f64=k64,
+                                       plain_rel_err_vs_f64=p64_rel)
         out[f"mesh{n}"] = rec
         del ef
-        by_device = rec["launches_by_device"]
+    emit({"phase": "mesh", **out})
+    if count >= 2:
+        rec = out[f"mesh{n}"]
         missing = [f"{k}:cuda:{i}" for k in ("composite_fwd", "composite_bwd") for i in range(n)
-                   if by_device.get(f"{k}:cuda:{i}", 0) <= 0]
+                   if rec["launches_by_device"].get(f"{k}:cuda:{i}", 0) <= 0]
         if missing:
             fail(f"mesh: no launches of {missing} on the {n}-GPU run")
         if not rec["traj_max_abs_diff"] <= 5e-4:
             fail(f"mesh: {n} GPUs differ from one by {rec['traj_max_abs_diff']} in the trajectory")
-        if not rel <= BWD_TOL:
-            fail(f"mesh: the backward on {last} differs from its plain version by {rel}")
-    emit({"phase": "mesh", **out})
+        b = rec["bwd_last_gpu"]
+        if not b["same_bits_on_gpu0"] or b.get("f64_misses", 0):
+            fail(f"mesh: the backward on {last} differs from its plain version (float64 band) or from the same "
+                 f"launch on cuda:0: {b}")
     for label, r in out.items():
         if not isinstance(r, dict):
             continue
@@ -959,6 +1022,18 @@ def check_mesh(cfglib, torch, n_frames: int = 24, multi_only: bool = False) -> d
         for k in ("composite_fwd", "composite_bwd"):
             if r["launches"][k] <= 0:
                 fail(f"mesh: kernel {k} was never launched on {label}")
+        if "eager" not in r:
+            continue
+        if r["mode"] != "graph" or r["eager"]["mode"] != "eager":
+            fail(f"mesh: {label} ran in modes {r['mode']} / {r['eager']['mode']}, not graph / eager")
+        if not r["trajectory_bit_equal"] or r["map_fields_differing"]:
+            fail(f"mesh: {label} on graphs differs from eager (trajectory bit-equal {r['trajectory_bit_equal']}, "
+                 f"map fields differing {r['map_fields_differing']})")
+        if r["captures_after_window_full"] != 0:
+            fail(f"mesh: {label} captured {r['captures_after_window_full']} graphs after its window filled")
+        if not r["launches_equal_eager"]:
+            fail(f"mesh: {label} launches by device {r['launches_by_device_net']} (capture runs set apart), "
+                 f"eager {r['eager']['launches_by_device']}")
     if "burst_mvdown_mesh1" in out and out["burst_mvdown_mesh1"]["launches"]["composite_geom"] <= 0:
         fail("mesh: the geometry-only kernel was never launched on the burst schedule under a mesh")
     if "mesh2_on_gpu0" in out and not out["mesh2_on_gpu0"]["traj_max_abs_diff"] <= 5e-4:
@@ -1125,8 +1200,10 @@ def check_scaling(torch) -> dict:
     with a 262144-surfel map and a window of min(4, GPUs) (one member per
     GPU), as the dryrun configures it, without the pixel-sharded tracker,
     at the port's default slab caps (2048, 1024), and with both changes.
-    Each table goes to its own file under chiprun_out/. Fails unless every
-    GPU that holds a window member launched both compositors. Trajectory
+    Each row runs on CUDA graphs and eagerly. Each table goes to its own
+    file under chiprun_out/. Fails unless every GPU that holds a window
+    member launched both compositors and each graph run is bit-equal to its
+    eager twin. Trajectory
     differences across device counts are reported, not held: at the
     dryrun's slab caps (256, 128) the sub-columns overflow, where float
     sums in another order can tip a frame's tracking (phases "dryrun" and
@@ -1146,12 +1223,14 @@ def check_scaling(torch) -> dict:
         tables[label] = t
         for r in t["rows"]:
             emit({"phase": "scaling", "table": label,
-                  **{k: v for k, v in r.items() if k not in ("frame_s", "window_sizes", "overrides")}})
+                  **{k: v for k, v in r.items() if k not in ("frame_s", "window_sizes", "overrides", "captures")}})
             busy = min(r["n_devices"], r["window"])
             idle = [f"{k}:cuda:{i}" for k, per in r["launches_by_gpu"].items() for i in range(busy)
                     if i >= len(per) or per[i] <= 0]
             if idle:
                 fail(f"scaling: {label} on {r['n_devices']} GPUs: no launches of {idle}")
+            if not r["graphs_bit_equal"]:
+                fail(f"scaling: {label} on {r['n_devices']} GPUs: the graph run differs from the eager run")
     return tables
 
 
@@ -1178,19 +1257,26 @@ def profiled_launches(torch, step, frames) -> dict:
     return {"host_launches_per_frame": host / len(frames), "device_kernels_per_frame": dev / len(frames)}
 
 
-def graphs_run(cfglib, torch, graphs, n_frames: int = 24, n_profiled: int = 3) -> tuple:
-    """`n_frames` of the slice configuration through `EGGFusion.reconstruct`
-    with `graphs` (None: CUDA graphs, the default; False: eager), after
-    `warmup`; then `n_profiled` more frames under the profiler. Returns the
-    record, the system, and the trajectory and map after `n_frames`."""
+def graphs_run(cfglib, torch, graphs, n_frames: int = 24, n_profiled: int = 3, overrides: dict | None = None,
+               name: str = "graphs") -> tuple:
+    """`n_frames` of the slice configuration (with `overrides` merged in)
+    through `EGGFusion.reconstruct` with `graphs` (None: CUDA graphs, the
+    default; False: eager), after `warmup`; then `n_profiled` more frames
+    under the profiler. The launch counts are zeroed after `warmup` and read
+    after `n_frames`, by kernel and by device, beside the launches the eager
+    runs before the captures made in those frames account for
+    (`Programs.warm_launches`). Returns the record, the system, and the
+    trajectory and map after `n_frames`."""
     from eggfusion_tpu_torch.core.surfels import FIELDS
     from eggfusion_tpu_torch.data.datasets import load_dataset
     from eggfusion_tpu_torch.main import build_frame
     from eggfusion_tpu_torch.ops import raster_tile as rt
     from eggfusion_tpu_torch.system import EGGFusion
+    from eggfusion_tpu_torch.utils import eval as evalu
 
     label = "eager" if graphs is False else "graphs"
-    cfg = cfglib.slice_config(n_frames + n_profiled, os.path.join(SMOKE_RUNS, f"graphs_{label}"))
+    cfg = cfglib.slice_config(n_frames + n_profiled, os.path.join(SMOKE_RUNS, f"{name}_{label}"))
+    cfg = cfglib.merge(cfg, overrides or {})
     ef = EGGFusion(cfg, graphs=graphs)
     ds = ef.dataset = load_dataset(cfg, ef.device)
 
@@ -1203,25 +1289,46 @@ def graphs_run(cfglib, torch, graphs, n_frames: int = 24, n_profiled: int = 3) -
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
     captures_warmup = ef.programs.captures()
+    warm0 = dict(ef.programs.warm_launches)
     rt.reset_launch_counts()
+    captures, window = [], []
+    sync = lambda: [torch.cuda.synchronize(i) for i in range(torch.cuda.device_count())]
+    full = t_full = None
     t0 = time.perf_counter()
-    step(0)
-    torch.cuda.synchronize()
-    frame0_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for fid in range(1, n_frames):
+    for fid in range(n_frames):
         step(fid)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(rt.LAUNCHES)
+        if fid == 0:
+            sync()
+            frame0_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        captures.append(ef.programs.captures())
+        window.append(len(ef.mapper.keyframe_manager.sliding_window))
+        if full is None and window[-1] >= ef.mapper.keyframe_manager.window_size:
+            full = fid
+            sync()
+            t_full = time.perf_counter()
+    sync()
+    t_end = time.perf_counter()
+    wall = t_end - t0
+    steady_ms = (t_end - t_full) * 1e3 / (n_frames - 1 - full) if full is not None and full < n_frames - 1 else None
+    launches, by_device = dict(rt.LAUNCHES), dict(rt.LAUNCHES_BY_DEVICE)
+    warm = {k: n - warm0.get(k, 0) for k, n in ef.programs.warm_launches.items() if n != warm0.get(k, 0)}
     traj = ef._traj_np("est")
     fields = {f: getattr(ef.mapper.surfels, f).clone() for f in FIELDS}
     captures_frames = ef.programs.captures() - captures_warmup
     prof = profiled_launches(torch, step, range(n_frames, n_frames + n_profiled))
+    ref = ef._traj_np("ref")
     rec = {"label": label, "mode": ef.programs.mode, "frames": n_frames, "warmup_s": warmup_s,
-           "captures_warmup": captures_warmup, "captures_in_frames": captures_frames, "frame0_s": frame0_s,
+           "captures_warmup": captures_warmup, "captures_in_frames": captures_frames,
+           "captures_per_frame": [b - a for a, b in zip([captures_warmup] + captures, captures)],
+           "window_full_frame": full,
+           "captures_after_window_full": None if full is None else captures[-1] - captures[full],
+           "frame0_s": frame0_s,
            "ms_per_frame_after_frame0": wall * 1e3 / (n_frames - 1), "fps_after_frame0": (n_frames - 1) / wall,
-           **prof, "launches": launches, "active_surfels": int(ef.mapper.surfels.num_active())}
+           "ms_per_frame_after_window_full": steady_ms,
+           **prof, "launches": launches, "launches_by_device": by_device, "capture_warm_launches": warm,
+           "ate_cm": evalu.ate_rmse(ref[:n_frames, :3, 3], traj[:, :3, 3]),
+           "opt_steps": ef.mapper.opt_steps_total, "active_surfels": int(ef.mapper.surfels.num_active())}
     return rec, ef, traj, fields
 
 

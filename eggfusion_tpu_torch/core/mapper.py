@@ -14,16 +14,19 @@ full model render of the evaluations.
 
 The capacity ladder makes the same decisions as the JAX module's, from the
 same lagged count readbacks. The JAX module's programs (`map_update`,
-`opt_step`, `bin_cache`, `render_model`) run through the system's program
-cache (`utils.graphs`): on CUDA one captured graph per key and rung, the
-map and the Adam moments their state, updated in place in one set of
-buffers per rung. A rung's programs are captured when the map first
-stands on it (`capture_rung`, the JAX module's bucket compile, done inline:
-a capture takes milliseconds), or ahead of it by `precompile_ladder`;
-leaving a rung drops its graphs and pools. Map maintenance (prune and
-compact) stays eager and writes its result back into the same buffers.
-The spawn and tile-subset draws are made outside the programs and passed
-in.
+`opt_step`, `bin_cache`, `render_model`, map maintenance's `prune` and
+`compact`) run through the system's program cache (`utils.graphs`): on
+CUDA one captured graph per key and rung, the map and the Adam moments
+their state, updated in place in one set of buffers per rung. A rung's
+programs are captured when the map first stands on it (`capture_rung`, the
+JAX module's bucket compile, done inline: a capture takes milliseconds), or
+ahead of it by `precompile_ladder`; leaving a rung drops its graphs and
+pools. Maintenance's count readbacks and its compaction decision stay on
+the host, `count_lag` frames late. Under a mesh the window-batched step
+runs as `parallel.mesh`'s programs: one per device holding window members,
+keyed by the members' shapes, and the reduction with Adam on the first
+device, captured when a member joins the window (`_prepare_window_step`). The spawn and tile-subset draws are made
+outside the programs and passed in.
 
 Device scalars the host needs (fusion stats, losses, pose deltas, map
 counts) are copied asynchronously and read `count_lag` frames later, as in
@@ -409,8 +412,6 @@ class Mapping:
             from eggfusion_tpu_torch.parallel import mesh as pmesh
 
             self.devices = pmesh.make_mesh(mesh_devices, self.device)
-            self._window_opt_step = pmesh.make_window_opt_step(
-                renderer.render_at, self.mcfg, self.devices, opt_cap=renderer.opt_raster_cap)
         self.debug_nan = bool(cfg.System.get("check_nan", False))
         self._system_cfg = {
             "reco_normal_thres": float(cfg.System.reco_normal_threshold),
@@ -474,6 +475,13 @@ class Mapping:
         self._p_opt = self.programs.program("opt_step", self._opt_step_program)
         self._p_bin = self.programs.program("bin_cache", self._bin_cache_program)
         self._p_render = self.programs.program("render_model", self._render_program)
+        self._p_prune = self.programs.program("prune", self._prune_program)
+        self._p_compact = self.programs.program("compact", self._compact_program)
+        if self.devices is not None:
+            from eggfusion_tpu_torch.parallel import mesh as pmesh
+
+            self._window_opt_step = pmesh.make_window_opt_step(
+                renderer.render_at, self.mcfg, self.devices, opt_cap=renderer.opt_raster_cap, programs=self.programs)
         self._captured_rungs: set = set()
         self._adam_bufs: dict = {}  # (schedule, capacity) -> (moments, step)
         self._rung_maps: dict = {}  # capacity -> empty SurfelMap
@@ -664,6 +672,15 @@ class Mapping:
     def _render_program(self, s, x, *, width, height):
         return self.render_model(s, x["w2c"], x["intr"], width, height)
 
+    def _prune_program(self, s, x, *, max_age):
+        """`fusion.prune_unstable` at frame time `x` (an int32 device scalar)
+        into the map's buffers; returns its (count, active count)."""
+        sf.assign(s, fusion.prune_unstable(s, self.scfg, x, max_age))
+        return s.count.clone(), s.num_active()
+
+    def _compact_program(self, s, _x):
+        sf.assign(s, sf.compact_surfels(s))
+
     # the program calls
 
     def _update_args(self, frame_map, w2c, intr, width, height, first, full_post, conv, do_render, model_cap):
@@ -672,10 +689,12 @@ class Mapping:
         spawn_u = None
         if first or do_render:
             spawn_u = self.random.spawn(self.time, height, width).to(self.device)
-        x = {"frame_map": frame_map, "w2c": w2c, "intr": intr,
-             "time": torch.full((), self.time, dtype=torch.int32, device=self.device),
+        x = {"frame_map": frame_map, "w2c": w2c, "intr": intr, "time": self._time_tensor(),
              "conv": conv, "spawn_u": spawn_u}
         return static, x
+
+    def _time_tensor(self):
+        return torch.full((), self.time, dtype=torch.int32, device=self.device)
 
     def render(self, w2c, intr, width: int, height: int) -> dict:
         """`render_model` of the current map through its program: the
@@ -750,19 +769,25 @@ class Mapping:
             self._p_update.prepare(static, s, x, rung=rung)
         view = {"width": width, "height": height}
         self._p_render.prepare(view, s, {"w2c": w2c, "intr": intr}, rung=rung)
-        cache = self._p_bin(view, s, {"w2c": w2c, "intr": intr}, rung=rung)
-        kfm = {"color": frame_map["color_map"], "depth": frame_map["depth_map"],
-               "normal": frame_map["normal_map_c"], "rgb_mask": frame_map["rgb_mask"],
-               "geo_mask": frame_map["geo_mask"]}
-        u = (torch.zeros(rt.n_tiles_static(width, height), device=self.device)
-             if self.use_tile_subset else None)
-        x = {"kf": kfm, "w2c": w2c, "intr": intr, "geo": _geo_snapshot(s), "cache": cache, "tile_u": u}
-        static = {**view, "lrs": tuple(sorted(self.sw_lrs.items()))}
-        # in a fixed order: a set's would follow the process's string hash
-        # seed, and so would the order of the captures and their memory
-        for schedule in dict.fromkeys(["window" if amortized else "batch"] + (["batch"] if first else [])):
-            moments, step = self._adam_buffers(schedule, s)
-            self._p_opt.prepare(static, (s, moments, step), x, rung=rung)
+        if self.mcfg.prune_freq > 0:
+            self._p_prune.prepare({"max_age": self.mcfg.prune_max_age}, s, self._time_tensor(), rung=rung)
+            self._p_compact.prepare({}, s, None, rung=rung)
+        # under a mesh the window step's programs are captured as members
+        # join the window (`_prepare_window_step`): their keys follow them
+        if self.devices is None:
+            cache = self._p_bin(view, s, {"w2c": w2c, "intr": intr}, rung=rung)
+            kfm = {"color": frame_map["color_map"], "depth": frame_map["depth_map"],
+                   "normal": frame_map["normal_map_c"], "rgb_mask": frame_map["rgb_mask"],
+                   "geo_mask": frame_map["geo_mask"]}
+            u = (torch.zeros(rt.n_tiles_static(width, height), device=self.device)
+                 if self.use_tile_subset else None)
+            x = {"kf": kfm, "w2c": w2c, "intr": intr, "geo": _geo_snapshot(s), "cache": cache, "tile_u": u}
+            static = {**view, "lrs": tuple(sorted(self.sw_lrs.items()))}
+            # in a fixed order: a set's would follow the process's string hash
+            # seed, and so would the order of the captures and their memory
+            for schedule in dict.fromkeys(["window" if amortized else "batch"] + (["batch"] if first else [])):
+                moments, step = self._adam_buffers(schedule, s)
+                self._p_opt.prepare(static, (s, moments, step), x, rung=rung)
         for hook in self.capture_hooks:
             hook(s, frame_map, w2c, intr, width, height)
         self._captured_rungs.add(rung)
@@ -960,6 +985,8 @@ class Mapping:
         if self.time % self.mcfg.sw_add_freq == 0 and not suspect:
             self.keyframe_manager.sliding_window.append(
                 KeyFrame(frame, frame_map, self.time, -1, self.keyframe_manager.storage))
+            if self.devices is not None and self.programs.enabled and not first:
+                self._prepare_window_step(amortized)
         if suspect:
             pass  # no keyframe decisions from a failure-streak pose
         elif opt_frame:
@@ -996,12 +1023,11 @@ class Mapping:
     def maintain_map(self, defer: bool = False) -> None:
         """Cull error-dominated / stale unstable surfels, then compact when
         fragmentation exceeds `compact_frag` of capacity. `defer` reads the
-        two counts `count_lag` + 1 frames later."""
+        two counts `count_lag` + 1 frames later. Prune and compact run as the
+        rung's programs "prune" and "compact"."""
         with torch.no_grad():
-            sf.assign(self.surfels, fusion.prune_unstable(self.surfels, self.scfg, self.time,
-                                                          self.mcfg.prune_max_age))
-            cnt = self.surfels.count.clone()
-            act = self.surfels.num_active()
+            cnt, act = self._p_prune({"max_age": self.mcfg.prune_max_age}, self.surfels, self._time_tensor(),
+                                     rung=self.surfels.capacity)
         if defer:
             self._maint_pending = (self.time, HostReadback(cnt), HostReadback(act))
             return
@@ -1036,7 +1062,7 @@ class Mapping:
         `_consider_shrink`."""
         if count - n_active > self.mcfg.compact_frag * self.surfels.capacity:
             with torch.no_grad():
-                sf.assign(self.surfels, sf.compact_surfels(self.surfels))
+                self._p_compact({}, self.surfels, None, rung=self.surfels.capacity)
             count = n_active
             self._invalidate_capacity_state()
         self._known_count = count
@@ -1064,6 +1090,18 @@ class Mapping:
         batch = pmesh.window_batch(kfs, B, self.devices)
         self._window_batch_cache = (key, batch)
         return batch
+
+    def _prepare_window_step(self, amortized: bool) -> None:
+        """Capture the mesh's window step for the window as it now stands,
+        on the Adam state of the frame loop's schedule: a new member changes
+        the step's keys, and the step may first run frames later (the
+        amortized schedule steps every few frames), so the frames after
+        the one that fills the window capture nothing. Frame 0 optimizes
+        its one-member window at once."""
+        window = list(self.keyframe_manager.sliding_window)
+        moments, step = self._adam_buffers("window" if amortized else "batch")
+        self._window_opt_step.prepare(self.surfels, moments, step, self._window_batch(window),
+                                      _geo_snapshot(self.surfels), self.sw_lrs, window[0].width, window[0].height)
 
     def _amortized_opt(self) -> None:
         """local_map_iter * |window| steps per sw_optimize_freq frames, run
@@ -1149,8 +1187,7 @@ class Mapping:
         of keyframes rendered together (one block per device) for
         `n_steps_each` Adam steps."""
         geo = _geo_snapshot(self.surfels)
-        moments = _adam_init({k: getattr(self.surfels, k) for k in OPT_FIELDS})
-        step = torch.zeros((), dtype=torch.int32, device=self.device)
+        moments, step = self._adam_state("batch")
         loss = torch.full((), float("nan"), device=self.device)
         for kfs in batches:
             batch = self._window_batch(kfs)
@@ -1160,7 +1197,7 @@ class Mapping:
                 self.opt_steps_total += 1
                 if self.debug_nan and not np.isfinite(float(loss)):
                     raise FloatingPointError("NaN/Inf batched map-optimization loss")
-        return loss
+        return loss.clone()
 
     def frame_batch_optimization(self, frame):
         """local_map_iter steps on each window member (local_map_iter_init

@@ -16,9 +16,16 @@ each GN iteration is built over row shards on every device.
 
 `dense_track_pose` runs as one program (`utils.graphs`, one CUDA graph for
 the whole coarse-to-fine solve, keyed by the pyramids' shapes and the
-config); its pose and flags are cloned where they outlive the frame. Two
-modes stay eager: `Tracking.early_exit` (it reads the device back every
-iteration) and the pixel-sharded tracking of a mesh.
+config), also on a mesh of one device, the tracker's own; its pose and
+flags are cloned where they outlive the frame. Pixel-sharded tracking on a
+mesh of several devices (or shards of one) runs as three programs:
+"track_prep" builds a shard's constraint rows and the frame's resampling
+pack on its device once a level, "track_shard" its partial normal
+equations every GN iteration, and "track_reduce" on the first device sums
+them in device order and updates the pose. The pose
+delta and the partials cross devices between the replays, as peer copies
+into the programs' static inputs (`copy_`). `Tracking.early_exit` stays
+eager: it reads the device back every iteration.
 """
 from __future__ import annotations
 
@@ -29,7 +36,10 @@ import torch
 
 from eggfusion_tpu_torch.geometry import lie
 from eggfusion_tpu_torch.ops import reduce as gn
+from eggfusion_tpu_torch.ops.image import decimate2d
+from eggfusion_tpu_torch.ops.pyramid import PyramidLevel
 from eggfusion_tpu_torch.utils.device import HostReadback
+from eggfusion_tpu_torch.utils.graphs import Programs
 
 
 class TrackerConfig(NamedTuple):
@@ -60,20 +70,51 @@ class TrackerConfig(NamedTuple):
 EARLY_EXIT_ITERATIONS = {"run": 0}
 
 
-def _level_shards(model_lvl, frame_lvl, stride: int, devices):
+_GRID_FIELDS = ("disp", "vertex", "normal", "mask", "intensity")
+
+
+def _one_device(devices, dev) -> bool:
+    """Whether a mesh is the single device `dev` (a tensor's device)."""
+    return len(devices) == 1 and torch.device(devices[0]) == dev
+
+
+def _shard_prep(_state, x, *, shard, stride, k0, k1, full_hw, device):
+    """One device's part of a level under a mesh, built on `device`: the
+    constraint grid's strided rows [k0, k1) (from the model level's rows
+    [k0 * stride, k1 * stride), `x[0]`) and the frame level's (`x[1]`)
+    resampling pack. `shard` keys the program apart from the other shards."""
+    model, frame = x
+    model = {k: v.to(device, non_blocking=True) for k, v in model.items()}
+    frame = PyramidLevel(*(t.to(device, non_blocking=True) for t in frame))
+    sl = lambda t: decimate2d(t, stride).contiguous()
+    rows = lambda t: decimate2d(t, stride)[k0:k1].contiguous()
+    grid = gn.ConstraintGrid(disp=sl(model["disp"]), vertex=sl(model["vertex"]), normal=sl(model["normal"]),
+                             mask=sl(model["mask"]), intensity=sl(model["intensity"]), frame_mask=rows(frame.mask),
+                             frame_gradmag=rows(frame.grad[..., 2]), intr=model["intr"], stride=stride, row0=k0,
+                             full_hw=full_hw)
+    return grid, gn.sampling_pack(frame)
+
+
+def _level_shards(model_lvl, frame_lvl, stride: int, devices, prep=None):
     """(constraint grid, resampling pack) of one level for each device:
     the whole grid on one device, or under a mesh (`devices`) each
-    device's contiguous block of strided rows with a copy of the frame's
-    pack (pixel-sharded tracking)."""
-    grid = gn.constraint_grid(model_lvl, frame_lvl, stride)
-    pack = gn.sampling_pack(frame_lvl)
-    if not devices or len(devices) == 1 and torch.device(devices[0]) == pack.device:
-        return [(grid, pack)]
+    device's contiguous block of strided rows with the frame's pack, built
+    on that device from the model level's rows and the frame level
+    (`_shard_prep`, through the program `prep` when given: pixel-sharded
+    tracking)."""
+    if not devices or _one_device(devices, frame_lvl.intensity.device):
+        return [(gn.constraint_grid(model_lvl, frame_lvl, stride), gn.sampling_pack(frame_lvl))]
     n = len(devices)
-    hs = grid.disp.shape[0]
+    H, W = model_lvl.disp.shape[:2]
+    hs, ws = -(-H // stride), -(-W // stride)
     bounds = [hs * i // n for i in range(n + 1)]
-    return [(gn.shard_rows(grid, k0, k1, d), pack.to(d, non_blocking=True))
-            for d, k0, k1 in zip(devices, bounds, bounds[1:])]
+    out = []
+    for i, (d, k0, k1) in enumerate(zip(devices, bounds, bounds[1:])):
+        model = {f: getattr(model_lvl, f)[k0 * stride:k1 * stride] for f in _GRID_FIELDS}
+        x = ({**model, "intr": model_lvl.intr}, frame_lvl)
+        static = dict(shard=i, stride=stride, k0=k0, k1=k1, full_hw=(hs * stride, ws * stride), device=str(d))
+        out.append(_shard_prep(None, x, **static) if prep is None else prep(static, None, x, device=d))
+    return out
 
 
 def _sum_on(dev, xs):
@@ -84,7 +125,35 @@ def _sum_on(dev, xs):
     return out
 
 
-def dense_track(pyr_model, pyr_frame, init_delta: torch.Tensor, cfg: TrackerConfig, devices=None):
+def _shard_normal_equations(_state, x, *, cfg, shard):
+    """The partial normal equations of one shard's rows at pose delta
+    `x["delta"]` (moved to the shard's device). `shard` keys the program
+    apart from the other shards on the same device."""
+    pack = x["pack"]
+    return gn.grid_normal_equations(x["grid"], pack, x["delta"].to(pack.device, non_blocking=True),
+                                    cfg.angle_threshold, cfg.distance_threshold, cfg.use_rgb, cfg.rgb_weight)
+
+
+def _gn_step(_state, x, *, cfg, min_n):
+    """One GN update from the shards' partials (`x["parts"]`), summed in
+    device order on the pose's device: returns (delta, converged, icp rms,
+    icp count), plus the early-exit stop flag with `cfg.early_exit`."""
+    delta = x["delta"]
+    A, b, n, r2_icp, n_icp = (_sum_on(delta.device, [p[i] for p in x["parts"]]) for i in range(5))
+    dx = gn.solve_gn(A, b, cfg.lm_damping)
+    delta = lie.update_transform(delta, dx)
+    residual_est = torch.linalg.vector_norm(b) / torch.sqrt(torch.clamp(n, min=1.0))
+    dx_norm = torch.linalg.vector_norm(dx)
+    rms = torch.sqrt(r2_icp / torch.clamp(n_icp, min=1.0))
+    # n > min_n: an empty solve must not count as converged
+    conv_i = (residual_est < cfg.residual_thres) & (dx_norm < cfg.dx_threshold) & (n > min_n)
+    out = (delta, x["converged"] | conv_i, rms, n_icp)
+    if cfg.early_exit:
+        out += (conv_i & (dx_norm < cfg.early_exit_factor * cfg.dx_threshold),)
+    return out
+
+
+def dense_track(pyr_model, pyr_frame, init_delta: torch.Tensor, cfg: TrackerConfig, devices=None, programs=None):
     """Full coarse-to-fine GN optimization, coarse (level L-1) to fine (0).
 
     With `cfg.early_exit` a level stops after the first iteration that
@@ -94,10 +163,17 @@ def dense_track(pyr_model, pyr_frame, init_delta: torch.Tensor, cfg: TrackerConf
     `devices` (a mesh, `parallel.mesh.make_mesh`) shards each level's
     constraint rows over the devices; the partial normal equations are
     summed on the first, in device order, every iteration, and the pose
-    stays there.
+    stays there. `programs` (a `utils.graphs.Programs`; eager when None)
+    runs the sharded pieces as its programs "track_prep" (a shard's grid
+    and pack, once a level), "track_shard" (a shard's partials) and
+    "track_reduce" (the sum and the update).
 
     Returns (delta (4, 4), converged (bool tensor), icp_rms_m, icp_count)."""
     dev = init_delta.device
+    programs = programs or Programs(dev, graphs=False)
+    prep = programs.program("track_prep", _shard_prep)
+    shard = programs.program("track_shard", _shard_normal_equations)
+    reduce = programs.program("track_reduce", _gn_step)
     delta = init_delta
     converged = torch.zeros((), dtype=torch.bool, device=dev)
     last_rms = torch.full((), float("inf"), device=dev)
@@ -110,25 +186,21 @@ def dense_track(pyr_model, pyr_frame, init_delta: torch.Tensor, cfg: TrackerConf
                   else cfg.solver_stride)
         Hl, Wl = model_lvl.intensity.shape[:2]
         min_n = max(1.0, cfg.min_valid_frac * (Hl // stride) * (Wl // stride))
-        shards = _level_shards(model_lvl, frame_lvl, stride, devices)
+        shards = _level_shards(model_lvl, frame_lvl, stride, devices, prep)
         for _ in range(cfg.pyramid_iters[l]):
-            parts = [gn.grid_normal_equations(grid, pack, delta.to(pack.device, non_blocking=True),
-                                              cfg.angle_threshold, cfg.distance_threshold, cfg.use_rgb,
-                                              cfg.rgb_weight)
-                     for grid, pack in shards]
-            A, b, n, r2_icp, n_icp = (_sum_on(dev, [p[i] for p in parts]) for i in range(5))
-            dx = gn.solve_gn(A, b, cfg.lm_damping)
-            delta = lie.update_transform(delta, dx)
-            residual_est = torch.linalg.vector_norm(b) / torch.sqrt(torch.clamp(n, min=1.0))
-            dx_norm = torch.linalg.vector_norm(dx)
-            last_rms = torch.sqrt(r2_icp / torch.clamp(n_icp, min=1.0))
-            last_n = n_icp
-            # n > min_n: an empty solve must not count as converged
-            conv_i = (residual_est < cfg.residual_thres) & (dx_norm < cfg.dx_threshold) & (n > min_n)
-            converged = converged | conv_i
+            parts = []
+            for i, (grid, pack) in enumerate(shards):
+                parts.append(shard({"cfg": cfg, "shard": i}, None, {"grid": grid, "pack": pack, "delta": delta},
+                                   device=pack.device))
+                if programs.enabled:  # the level's later iterations find its grid and pack in place
+                    staged = shard.last.input_tree()
+                    shards[i] = (staged["grid"], staged["pack"])
+            delta, converged, last_rms, last_n, *stop = reduce(
+                {"cfg": cfg, "min_n": min_n}, None, {"parts": parts, "delta": delta, "converged": converged},
+                device=dev)
             if cfg.early_exit:
                 EARLY_EXIT_ITERATIONS["run"] += 1
-                if bool(conv_i & (dx_norm < cfg.early_exit_factor * cfg.dx_threshold)):
+                if bool(stop[0]):
                     break
     return delta, converged, last_rms, last_n
 
@@ -140,10 +212,11 @@ def _motion_delta(prev_w2c, prev_prev_w2c, damping: float):
     return lie.se3_to_SE3(damping * xi)
 
 
-def dense_track_pose(pyr_model, pyr_frame, seed_delta, prev_transform, cfg: TrackerConfig, devices=None):
+def dense_track_pose(pyr_model, pyr_frame, seed_delta, prev_transform, cfg: TrackerConfig, devices=None,
+                     programs=None):
     """`dense_track` + on-device commit: returns (new w2c, committed, rms,
     n_icp); the commit is a select, no host readback."""
-    delta, converged, rms, n_icp = dense_track(pyr_model, pyr_frame, seed_delta, cfg, devices)
+    delta, converged, rms, n_icp = dense_track(pyr_model, pyr_frame, seed_delta, cfg, devices, programs)
     committed = converged
     if cfg.commit_min_count > 0:
         committed = committed | ((rms < cfg.commit_rms_m) & (n_icp >= cfg.commit_min_count))
@@ -218,25 +291,40 @@ class Tracker:
             from eggfusion_tpu_torch.core.sparse_init import SparseInitializer
 
             self._sparse = SparseInitializer(cfg)
-        self._track = None
-        if programs is not None and not self.config.early_exit and self.devices is None:
-            self._track = programs.program("track", _track_program)
+        # the programs (none with the early exit, which reads the device
+        # back every iteration): the whole solve as "track", or under a mesh
+        # of several devices (or shards) `dense_track`'s sharded programs
+        self._programs = None if self.config.early_exit else programs
+        self._track = None if self._programs is None else programs.program("track", _track_program)
+
+    def _mesh(self, dev):
+        """The devices to shard the solve over: None without a mesh or on a
+        mesh of the one device `dev` (the same operations as unsharded)."""
+        return None if self.devices is None or _one_device(self.devices, dev) else self.devices
 
     def track_pose(self, pyr_model, pyr_frame, seed_delta, prev_transform):
-        """`dense_track_pose` with this tracker's config, through its program
-        where it has one. The outputs are the program's: clone what outlives
-        its next call."""
-        if self._track is None:
-            return dense_track_pose(pyr_model, pyr_frame, seed_delta, prev_transform, self.config, self.devices)
+        """`dense_track_pose` with this tracker's config, through its
+        programs where it has them. The outputs are the programs': clone
+        what outlives their next call."""
+        devices = self._mesh(seed_delta.device)
+        if self._track is None or devices is not None:
+            return dense_track_pose(pyr_model, pyr_frame, seed_delta, prev_transform, self.config, devices,
+                                    self._programs)
         return self._track({"cfg": self.config}, None, (tuple(pyr_model), tuple(pyr_frame), seed_delta,
                                                        prev_transform))
 
     def capture(self, pyr_model, pyr_frame) -> None:
-        """Capture the tracking program for pyramids like these (`warmup`);
-        nothing runs."""
-        if self._track is not None:
-            eye = torch.eye(4, device=self.device)
+        """Capture the tracking programs for pyramids like these (`warmup`):
+        the "track" program without running it, or under a mesh of several
+        devices the sharded programs by one solve, whose result is
+        dropped (the programs hold no state)."""
+        if self._track is None:
+            return
+        eye = torch.eye(4, device=self.device)
+        if self._mesh(eye.device) is None:
             self._track.prepare({"cfg": self.config}, None, (tuple(pyr_model), tuple(pyr_frame), eye, eye))
+        else:
+            dense_track(pyr_model, pyr_frame, eye, self.config, self.devices, self._programs)
 
     def _seed_delta(self, frame, prev_transform):
         """Initial delta: a pending one-shot override first; without a

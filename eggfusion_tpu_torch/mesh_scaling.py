@@ -5,9 +5,10 @@ port's counterpart of `tools/mesh_scaling.py`).
         [--window N] [--no-shard-tracking] [--raster-cap C --opt-raster-cap C] [--device cpu]
 
 Runs `parallel.mesh.run_multichip_dryrun`'s pipeline on meshes of 1, 2 and 4
-GPUs (the counts above the visible GPUs are skipped, one line each) and
-writes `chiprun_out/mesh_scaling_torch.json`: one row per count with the
-dryrun's keys and
+GPUs (the counts above the visible GPUs are skipped, one line each), each
+twice: on CUDA graphs (the system's default) and eagerly
+(`EGGFusion(graphs=False)`), and writes `chiprun_out/mesh_scaling_torch.json`:
+one row per count with the graph run's dryrun keys and
 
 - `steady_ms_per_frame`: the median of `frame_s` over the frames from the
   one at which the sliding window first holds all its members
@@ -24,9 +25,16 @@ dryrun's keys and
   `--raster-cap` / `--opt-raster-cap`: the slab caps, 256 / 128 in the
   dryrun);
 - `launches_by_gpu`: the forward and backward compositor launches of the
-  run on each GPU (graph replays counted);
+  run on each GPU (graph replays counted, and the eager runs before each
+  capture: `warm_launches_by_gpu` counts those alone);
 - `traj_max_abs_diff`: the largest difference of its trajectory (c2w
-  matrices) from the first row's.
+  matrices) from the first row's;
+- `eager`: the eager run's `steady_ms_per_frame`, `window_full_frame`,
+  `wall_s` and `launches_by_gpu`, and `graphs_bit_equal`: whether the two
+  runs' trajectories and final maps hold the same bits;
+- `captures_after_window_full`: the graphs captured after the frame at
+  which the window first holds all its members (a rung the map grows onto
+  is captured there).
 
 The card's name and power limit (`nvidia-smi`) go into the file beside the
 rows. `--device cpu` runs the same on 1, 2 and 4 shards of the CPU (a CPU
@@ -55,23 +63,45 @@ def steady(frame_s: list, window_sizes: list, window: int) -> tuple[int | None, 
     return full, 1e3 * statistics.median(frame_s[full:])
 
 
-def row(n: int, width: int, height: int, frames: int, max_surfels: int, overrides: dict | None,
-        device) -> tuple[dict, object]:
-    """One row of the table (the dryrun's configuration with `overrides`),
-    and the run's `EGGFusion`."""
+def _run(cfg, device, graphs) -> tuple[dict, object]:
+    """One dryrun of `cfg` with `graphs`: its dryrun keys with the window
+    sizes, the steady time and the launches by GPU, and its `EGGFusion`."""
     from eggfusion_tpu_torch.ops import raster_tile as rt
     from eggfusion_tpu_torch.parallel import mesh as pmesh
 
-    cfg = pmesh.dryrun_config(n, width, height, frames, max_surfels, overrides)
-    window = int(cfg.Tracking.sliding_window_size)
     rt.reset_launch_counts()
-    result, ef, window_sizes = pmesh.dryrun(cfg, device)
+    result, ef, window_sizes = pmesh.dryrun(cfg, device, graphs=graphs)
     by_dev = dict(rt.LAUNCHES_BY_DEVICE)
-    full, ms = steady(result["frame_s"], window_sizes, window)
+    full, ms = steady(result["frame_s"], window_sizes, int(cfg.Tracking.sliding_window_size))
     mesh = [str(d) for d in ef.mapper.devices]
-    launches = {k: [by_dev.get(f"{k}:{d}", 0) for d in dict.fromkeys(mesh)] for k in KERNELS}
-    return {**result, "window": window, "overrides": overrides or {}, "window_sizes": window_sizes,
-            "window_full_frame": full, "steady_ms_per_frame": ms, "launches_by_gpu": launches}, ef
+    by_gpu = lambda counts: {k: [counts.get(f"{k}:{d}", 0) for d in dict.fromkeys(mesh)] for k in KERNELS}
+    return {**result, "window_sizes": window_sizes, "window_full_frame": full, "steady_ms_per_frame": ms,
+            "launches_by_gpu": by_gpu(by_dev), "warm_launches_by_gpu": by_gpu(ef.programs.warm_launches)}, ef
+
+
+def row(n: int, width: int, height: int, frames: int, max_surfels: int, overrides: dict | None,
+        device) -> tuple[dict, object]:
+    """One row of the table (the dryrun's configuration with `overrides`),
+    and the graph run's `EGGFusion`. Where the system's programs run
+    eagerly anyway (on the CPU) the eager columns are that run's own."""
+    from eggfusion_tpu_torch.core.surfels import FIELDS
+    from eggfusion_tpu_torch.parallel import mesh as pmesh
+    from eggfusion_tpu_torch.utils.graphs import same_bits
+
+    cfg = pmesh.dryrun_config(n, width, height, frames, max_surfels, overrides)
+    r, ef = _run(cfg, device, None)
+    eager, equal = r, True
+    if ef.programs.enabled:
+        eager, ef_e = _run(cfg, device, False)
+        equal = ef._traj_np("est").tobytes() == ef_e._traj_np("est").tobytes() and all(
+            same_bits(getattr(ef.mapper.surfels, f), getattr(ef_e.mapper.surfels, f)) for f in FIELDS)
+        del ef_e
+    full, captures = r["window_full_frame"], r["captures"]
+    return {**r, "window": int(cfg.Tracking.sliding_window_size), "overrides": overrides or {},
+            "captures_after_window_full": None if full is None else captures[-1] - captures[full],
+            "graphs_bit_equal": equal,
+            "eager": {k: eager[k] for k in ("steady_ms_per_frame", "window_full_frame", "wall_s",
+                                            "launches_by_gpu")}}, ef
 
 
 def table(width: int = 128, height: int = 64, frames: int = 8, max_surfels: int = 8192,
@@ -92,7 +122,8 @@ def table(width: int = 128, height: int = 64, frames: int = 8, max_surfels: int 
         r["traj_max_abs_diff"] = float(abs(est - base).max())
         del ef
         rows.append(r)
-        print(json.dumps({k: v for k, v in r.items() if k not in ("frame_s", "window_sizes")}), flush=True)
+        print(json.dumps({k: v for k, v in r.items() if k not in ("frame_s", "window_sizes", "captures")}),
+              flush=True)
     return {"gpu": gpu_name_and_limit() if dev.type == "cuda" else None, "device": dev.type,
             "gpus_visible": torch.cuda.device_count(), "rows": rows}
 

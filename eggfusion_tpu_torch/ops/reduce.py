@@ -117,8 +117,9 @@ def solve_gn(A: torch.Tensor, b: torch.Tensor, lm: float = 1.0e-6) -> torch.Tens
 class ConstraintGrid(NamedTuple):
     """The model side of one level's constraints on the strided grid, with
     the frame's per-constraint masks: every input of a normal-equation
-    build but the frame's resampling pack. A row shard (`shard_rows`)
-    keeps the unsharded grid's size and its own first row."""
+    build but the frame's resampling pack. A row shard (pixel-sharded
+    tracking, `core.tracker._shard_prep`) keeps the unsharded grid's size
+    and its own first row."""
 
     disp: torch.Tensor  # (Hs, Ws, 1)
     vertex: torch.Tensor  # (Hs, Ws, 3)
@@ -141,16 +142,6 @@ def constraint_grid(model: PyramidLevel, frame: PyramidLevel, stride: int = 1) -
                           intensity=sl(model.intensity), frame_mask=sl(frame.mask),
                           frame_gradmag=sl(frame.grad[..., 2]), intr=model.intr, stride=stride, row0=0,
                           full_hw=(disp.shape[0] * stride, disp.shape[1] * stride))
-
-
-def shard_rows(grid: ConstraintGrid, k0: int, k1: int, device) -> ConstraintGrid:
-    """Strided rows [k0, k1) of `grid` on `device`: model rows k * stride,
-    so the shards of a split of [0, Hs) cover the grid exactly."""
-    rows = lambda x: x[k0:k1].to(device, non_blocking=True)
-    return grid._replace(disp=rows(grid.disp), vertex=rows(grid.vertex), normal=rows(grid.normal),
-                         mask=rows(grid.mask), intensity=rows(grid.intensity),
-                         frame_mask=rows(grid.frame_mask), frame_gradmag=rows(grid.frame_gradmag),
-                         intr=grid.intr.to(device, non_blocking=True), row0=grid.row0 + k0)
 
 
 def build_normal_equations(model: PyramidLevel, frame: PyramidLevel, transform: torch.Tensor,

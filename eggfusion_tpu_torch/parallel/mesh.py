@@ -13,10 +13,15 @@ surfel map lives on the first device. Each step copies the six optimized
 fields to every device; each device renders its keyframes with the
 production renderer and differentiates its share of the loss w.r.t. its own
 copy; the partial losses and gradients are summed on the first device in
-device order (so a run is deterministic), where the regularizer and Adam
-run. Nothing in the step synchronizes the host with a device. On the CPU a
-mesh is `n` shards on the one CPU device: the split and the reduction run
-as on GPUs, which is how the tests hold this module to the JAX step on the
+device order (so a run is deterministic, with no collective library),
+where the regularizer and Adam run. Nothing in the step synchronizes the
+host with a device. The step runs as the system's programs
+(`utils.graphs`): on CUDA one captured graph per device that holds
+members ("window_shard", keyed by its shard's index and members) and one
+on the first device ("window_reduce"); the copies between devices are the
+loads of the programs' inputs, between the replays. On the CPU a mesh is
+`n` shards on the one CPU device: the split and the reduction run as on
+GPUs, which is how the tests hold this module to the JAX step on the
 virtual CPU mesh.
 
 `run_multichip_dryrun` is the JAX module's dryrun: the product pipeline at
@@ -34,6 +39,7 @@ from eggfusion_tpu_torch.core import surfels as sf
 from eggfusion_tpu_torch.core.mapper import (
     OPT_FIELDS, MapperConfig, _adam_update, compute_image_loss, compute_reg_loss,
 )
+from eggfusion_tpu_torch.utils.graphs import Programs
 
 
 def make_mesh(n_devices: int, device) -> list[torch.device]:
@@ -80,47 +86,118 @@ def window_batch(kfs: list, batch_size: int, devices: list) -> WindowBatch:
     return WindowBatch(shards, len(kfs))
 
 
-def make_window_opt_step(render_at, mcfg: MapperConfig, devices: list, opt_cap: int | None = None):
+# the fields of a map that `sf.render_params` does not read
+_UNRENDERED = ("eta", "sigma2", "observe_count", "tic", "error_count", "stable", "count")
+
+
+def make_window_opt_step(render_at, mcfg: MapperConfig, devices: list, opt_cap: int | None = None,
+                         programs=None):
     """The window-batched, keyframe-sharded map-optimization step.
 
     Returns step(s, moments, step_count, batch, geo_snapshot, lrs, width,
-    height) -> (s, moments, step_count + 1, loss): loss = sum_k v_k
-    loss_k / max(sum_k v_k, 1) + the drift regularizer (computed once, on
-    the first device), then one Adam step there. The map's fields are
-    updated in place."""
-    dev0 = devices[0]
+    height) -> (s, moments, step_count, loss): loss = sum_k v_k loss_k /
+    max(sum_k v_k, 1) + the drift regularizer (computed once, on the first
+    device), then one Adam step there. The map's fields, the moments and
+    the step count are updated in place.
 
-    def step(s: sf.SurfelMap, moments: dict, step_count: torch.Tensor, batch: WindowBatch,
-             geo_snapshot: dict, lrs: dict, width: int, height: int):
+    The step runs as programs of `programs` (a `utils.graphs.Programs`;
+    eager when None): "window_shard" on each device that holds members (the
+    map's six optimized fields and its active mask loaded into the
+    program's inputs on that device, its members rendered with the
+    production renderer, the six gradients and the partial loss out) and
+    "window_reduce" on the first device (the partials summed in device
+    order, the regularizer, Adam in place). A batch's members are loaded
+    into the shard programs once: after the first call the batch holds the
+    programs' copies, which later calls find in place. `step.prepare(...)`,
+    with the arguments of `step`, captures the programs ahead."""
+    dev0 = devices[0]
+    programs = programs or Programs(dev0, graphs=False)
+
+    def shard_fn(_state, x, *, shard, width, height, scale):
+        d = x["members"][0][1].device
+        p = {k: v.to(d, non_blocking=True).detach().requires_grad_(True) for k, v in x["params"].items()}
+        with torch.enable_grad():
+            rp = sf.render_params(sf.SurfelMap(**p, active=x["active"].to(d, non_blocking=True),
+                                               **dict.fromkeys(_UNRENDERED)))
+            loss_d = sum(compute_image_loss(render_at(rp, w2c, intr, width, height, cap=opt_cap), maps, mcfg)
+                         for maps, w2c, intr in x["members"]) * scale
+            g = torch.autograd.grad(loss_d, [p[k] for k in OPT_FIELDS])
+        return list(g), loss_d.detach()
+
+    def reduce_fn(state, x, *, lrs):
+        s, moments, step_count = state
         base = {k: getattr(s, k).detach() for k in OPT_FIELDS}
-        scale = 1.0 / max(batch.n_valid, 1)
         grads = None
         img = torch.zeros((), device=dev0)
-        for d, members in zip(devices, batch.shards):
-            if not members:
-                continue
-            p = {k: v.to(d, non_blocking=True).detach().requires_grad_(True) for k, v in base.items()}
-            with torch.enable_grad():
-                rp = sf.render_params(s.replace(**p, active=s.active.to(d, non_blocking=True)))
-                loss_d = sum(compute_image_loss(render_at(rp, w2c, intr, width, height, cap=opt_cap), maps, mcfg)
-                             for maps, w2c, intr in members) * scale
-                g = torch.autograd.grad(loss_d, [p[k] for k in OPT_FIELDS])
-            g = [x.to(dev0, non_blocking=True) for x in g]
+        for g, loss_d in zip(x["grads"], x["losses"]):
+            g = [t.to(dev0, non_blocking=True) for t in g]
             grads = g if grads is None else [a + b for a, b in zip(grads, g)]
-            img = img + loss_d.detach().to(dev0, non_blocking=True)
+            img = img + loss_d.to(dev0, non_blocking=True)
         p = {k: v.detach().requires_grad_(True) for k, v in base.items()}
         with torch.enable_grad():
-            reg = compute_reg_loss(s.replace(**p), geo_snapshot, mcfg)
+            reg = compute_reg_loss(s.replace(**p), x["geo"], mcfg)
             # the regularizer reads positions and rotations only
             g_reg = torch.autograd.grad(reg, [p[k] for k in OPT_FIELDS], allow_unused=True,
                                         materialize_grads=True)
         grads = g_reg if grads is None else [a + b for a, b in zip(grads, g_reg)]
         with torch.no_grad():
-            new_params, moments = _adam_update(base, dict(zip(OPT_FIELDS, grads)), moments, step_count, lrs)
+            new_params, new_moments = _adam_update(base, dict(zip(OPT_FIELDS, grads)), moments, step_count,
+                                                   dict(lrs))
             for k in OPT_FIELDS:
                 getattr(s, k).copy_(new_params[k])
-        return s, moments, step_count + 1, img + reg.detach()
+                for buf, new in zip(moments[k], new_moments[k]):
+                    buf.copy_(new)
+            step_count.add_(1)
+        return img + reg.detach()
 
+    shard_prog = programs.program("window_shard", shard_fn)
+    reduce_prog = programs.program("window_reduce", reduce_fn)
+
+    def shard_calls(s, batch, width, height):
+        """(device, static, inputs) of each shard program the batch runs."""
+        scale = 1.0 / max(batch.n_valid, 1)
+        params = {k: getattr(s, k) for k in OPT_FIELDS}
+        return [(d, {"shard": i, "width": width, "height": height, "scale": scale},
+                 {"params": params, "active": s.active, "members": members})
+                for i, (d, members) in enumerate(zip(devices, batch.shards)) if members]
+
+    def keep_members(entry, members) -> None:
+        """The batch keeps the program's copies of its members: later calls
+        find them in place (loaded once per window generation)."""
+        members[:] = entry.input_tree()["members"]
+
+    def step(s: sf.SurfelMap, moments: dict, step_count: torch.Tensor, batch: WindowBatch,
+             geo_snapshot: dict, lrs: dict, width: int, height: int):
+        grads, losses = [], []
+        for d, static, x in shard_calls(s, batch, width, height):
+            g, loss_d = shard_prog(static, None, x, rung=s.capacity, device=d)
+            if programs.enabled:
+                keep_members(shard_prog.last, x["members"])
+            grads.append(g)
+            losses.append(loss_d)
+        loss = reduce_prog({"lrs": tuple(sorted(lrs.items()))}, (s, moments, step_count),
+                           {"grads": grads, "losses": losses, "geo": geo_snapshot}, rung=s.capacity, device=dev0)
+        return s, moments, step_count, loss
+
+    def prepare(s: sf.SurfelMap, moments: dict, step_count: torch.Tensor, batch: WindowBatch,
+                geo_snapshot: dict, lrs: dict, width: int, height: int) -> None:
+        """Capture `step`'s programs for these arguments now, without
+        running them (the map, the moments, the step and the batch stay as
+        they are). The reduction is captured where the shards' captures
+        give its inputs (on CUDA graphs; the CPU plumbing makes it at its
+        first call)."""
+        parts = []
+        for d, static, x in shard_calls(s, batch, width, height):
+            e = shard_prog.prepare(static, None, x, rung=s.capacity, device=d)
+            if e is None:
+                return
+            parts.append(e.outputs)
+        if all(p is not None for p in parts):
+            reduce_prog.prepare({"lrs": tuple(sorted(lrs.items()))}, (s, moments, step_count),
+                                {"grads": [g for g, _ in parts], "losses": [loss for _, loss in parts],
+                                 "geo": geo_snapshot}, rung=s.capacity, device=dev0)
+
+    step.prepare = prepare
     return step
 
 
@@ -162,10 +239,11 @@ def dryrun_config(n_devices: int, width: int, height: int, n_frames: int, max_su
     return cfglib.merge(cfg, overrides or {})
 
 
-def dryrun(cfg, device=None, verbose: bool = True) -> tuple:
-    """`run_multichip_dryrun` on configuration `cfg` (`dryrun_config`);
-    returns (its result, the `EGGFusion` it ran, the sliding window's size
-    after each frame)."""
+def dryrun(cfg, device=None, verbose: bool = True, graphs=None) -> tuple:
+    """`run_multichip_dryrun` on configuration `cfg` (`dryrun_config`), its
+    programs run as `EGGFusion(graphs=graphs)` runs them (None: CUDA graphs
+    on CUDA, False: eagerly); returns (its result, the `EGGFusion` it ran,
+    the sliding window's size after each frame)."""
     import time
 
     import numpy as np
@@ -178,16 +256,17 @@ def dryrun(cfg, device=None, verbose: bool = True) -> tuple:
     n_devices = int(cfg.System.mesh_devices)
     n_frames = int(cfg.Dataset.n_frames)
     t0 = time.perf_counter()
-    ef = EGGFusion(cfg, device=device)
+    ef = EGGFusion(cfg, device=device, graphs=graphs)
     dataset = load_dataset(cfg, ef.device)
     mesh = ef.mapper.devices
-    frame_s, window = [], []
+    frame_s, window, captures = [], [], []
     for fid in range(n_frames):
         t_frame = time.perf_counter()
         ef.reconstruct(build_frame(dataset, fid, False, ef.device, nlevel=ef.nlevel_frame, programs=ef.programs))
         sync_devices(mesh)
         frame_s.append(time.perf_counter() - t_frame)
         window.append(len(ef.mapper.keyframe_manager.sliding_window))
+        captures.append(ef.programs.captures())
     wall = time.perf_counter() - t0
 
     ref = ef._traj_np("ref")[:, :3, 3]
@@ -208,6 +287,7 @@ def dryrun(cfg, device=None, verbose: bool = True) -> tuple:
         "wall_s": round(wall, 1),
         "opt_steps": opt_steps,
         "frame_s": frame_s,
+        "captures": captures,
     }
     if verbose:
         print(f"multichip dryrun ok on {n_devices} devices: {result}")
@@ -224,7 +304,8 @@ def run_multichip_dryrun(n_devices: int, width: int = 128, height: int = 64, n_f
     renders; on the CPU, `n` shards of the CPU device. Asserts the JAX
     dryrun's bounds (finite ATE, > 100 fused px, > 500 surfels, >= 4 opt
     steps) and returns its dict plus `frame_s`: each frame's wall seconds,
-    taken after every device of the mesh has drained."""
+    taken after every device of the mesh has drained, and `captures`: the
+    system's program captures after each frame."""
     cfg = dryrun_config(n_devices, width, height, n_frames, max_surfels)
     result, _ef, _window = dryrun(cfg, device, verbose)
     return result

@@ -19,14 +19,16 @@ The frame's programs run through the system's program cache
 programs): the frame preparation and its pyramid, `dense_track_pose`,
 `preprocess_frame_map`, the map update (with `postprocess_model_map`),
 the burst schedule's render and postprocess, the opt step, the binning and
-the model render. On CUDA each is a captured CUDA graph; `warmup` captures
-them before frame 0, as the JAX `warmup` compiles. What stays eager: the
-mesh's window step and pixel-sharded tracking, `Tracking.early_exit`,
-recovery and its rotation sweep (the re-anchor's render replays the model
-render), map maintenance (prune and compact), `finish()` and the
-evaluations except where they replay a captured key, and the sparse
-frontend's host read (it comes before the tracking program; its seed is
-an input).
+the model render, map maintenance's prune and compaction, and under a mesh
+(`System.mesh_devices`) the window-batched step and the pixel-sharded
+tracker (programs per device, `parallel/mesh.py`, `core/tracker.py`). On
+CUDA each is a captured CUDA graph; `warmup` captures them before frame 0,
+as the JAX `warmup` compiles (the mesh's window step at its first use: its
+keys follow the window's members). What stays eager: `Tracking.early_exit`
+(a readback per GN iteration), recovery and its rotation sweep (the
+re-anchor's render replays the model render), the evaluations except
+where they replay a captured key, and the sparse frontend's host read (it
+comes before the tracking program; its seed is an input).
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Trace the port's main path on a CUDA GPU and report where the time goes.
 
     python -m eggfusion_tpu_torch.trace_main --frames 48 --warmup 8
+    python -m eggfusion_tpu_torch.trace_main --mesh 1 --frames 32 --warmup 12
 
 Runs `EGGFusion.reconstruct` over the synthetic sequence in the slice
 configuration (`config.slice_config`: `bench.py`'s 1280x704 workload with a
@@ -10,8 +11,12 @@ half of the rest timed without the profiler, then the other half under
 `torch.profiler` (CPU + CUDA). Prints one JSON line: the untraced frame
 time, device time per frame and by kernel name from the trace (kernels
 replayed from a graph included), the device busy share (device time per
-frame over the untraced frame time) and the host-side phase times per
-frame.
+frame over the untraced frame time), the host-side phase times per frame
+and the programs captured in the timed and traced frames. `--mesh N` traces
+instead the mesh configuration of `mesh_scaling.py`'s 640x480 table at the
+default slab caps (`parallel.mesh.dryrun_config`: 262144 slots, a window
+of 4, the window-batched step every frame) on N GPUs; its device time sums
+every GPU's.
 """
 from __future__ import annotations
 
@@ -35,9 +40,18 @@ def main(argv=None) -> dict:
     parser.add_argument("--frames", type=int, default=48)
     parser.add_argument("--warmup", type=int, default=8)
     parser.add_argument("--top", type=int, default=25, help="kernels listed by device time")
+    parser.add_argument("--mesh", type=int, default=0, help="trace the 640x480 mesh configuration on N GPUs")
     args = parser.parse_args(argv)
 
-    cfg = slice_config(args.frames, os.path.join("chiprun_out", "trace_main"))
+    save_dir = os.path.join("chiprun_out", "trace_main")
+    if args.mesh:
+        from eggfusion_tpu_torch.parallel.mesh import dryrun_config
+
+        cfg = dryrun_config(args.mesh, 640, 480, args.frames, 262144, {
+            "Tracking": {"sliding_window_size": 4},
+            "System": {"raster_cap": 2048, "opt_raster_cap": 1024, "save_dir": save_dir}})
+    else:
+        cfg = slice_config(args.frames, save_dir)
     ef = EGGFusion(cfg)
     dataset = ef.dataset = load_dataset(cfg, ef.device)
     ef.warmup()
@@ -48,19 +62,21 @@ def main(argv=None) -> dict:
     # warm-up, then an untimed-by-profiler half (frame rate), then a traced
     # half (device time: the profiler slows the host, not the kernels)
     mid = (args.warmup + args.frames) // 2
+    sync = lambda: [torch.cuda.synchronize(i) for i in range(torch.cuda.device_count())]
     for fid in range(args.warmup):
         step(fid)
-    torch.cuda.synchronize()
+    sync()
+    captures = ef.programs.captures()
     t0 = time.perf_counter()
     for fid in range(args.warmup, mid):
         step(fid)
-    torch.cuda.synchronize()
+    sync()
     untraced_ms = (time.perf_counter() - t0) * 1e3 / (mid - args.warmup)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for fid in range(mid, args.frames):
             step(fid)
-        torch.cuda.synchronize()
+        sync()
         wall = time.perf_counter() - t0
     n = args.frames - mid
 
@@ -78,6 +94,8 @@ def main(argv=None) -> dict:
     phase_ms = {p: sum(m[p] for m in metrics) / max(len(metrics), 1) for p in ("track_ms", "map_ms", "post_ms")}
     out = {
         "gpu": torch.cuda.get_device_name(0),
+        "mesh_devices": args.mesh,
+        "captures_after_warmup_frames": ef.programs.captures() - captures,
         "untraced_frames": mid - args.warmup,
         "untraced_ms_per_frame": untraced_ms,
         "untraced_fps": 1e3 / untraced_ms,

@@ -32,11 +32,23 @@ How a `Programs` runs its programs (`mode`):
   "eager" — the function is called directly (`EGGFusion(graphs=False)`, the
             counterpart of `jax.disable_jit`).
 
+Devices: a program runs on the `Programs`' device unless a call names
+another (`device=`, the mesh's per-GPU programs). An entry's static inputs,
+its capture and its replay are on its own device: each GPU has its own side
+stream, the entry its own pool, and a replay runs on that GPU's current
+stream, so PyTorch's two-way ordering of a peer copy (`copy_` between GPUs)
+orders it against the replays on both sides. A call's inputs may lie on
+another device: loading them into the static buffers is the peer copy. The
+device is part of the key, and so is a mesh shard's index (a static), so two
+shards on one device keep their own outputs.
+
 Kernel launches: `raster_tile.LAUNCHES` (and `LAUNCHES_BY_DEVICE`) count
 calls of the kernel wrappers, which a replay does not make. Each entry
 records the launches its capture made, by device (and takes them back out:
 a capture launches nothing) and adds them at every replay, so the counts
-stay those of real launches.
+stay those of real launches. The launches of the eager runs before a
+capture are real and counted; `Programs.warm_launches` keeps them apart
+too, so a graph run's counts less those equal the eager run's.
 """
 from __future__ import annotations
 
@@ -134,8 +146,8 @@ def _poison(t: torch.Tensor) -> None:
 class _Entry:
     """One key of a program: its static inputs, state, outputs and graph."""
 
-    def __init__(self, static: dict, rung, state_spec, state: list, in_spec, inputs: list):
-        self.static, self.rung = static, rung
+    def __init__(self, static: dict, rung, device, state_spec, state: list, in_spec, inputs: list):
+        self.static, self.rung, self.device = static, rung, device
         self.state_spec, self.state = state_spec, state
         self.in_spec, self.inputs = in_spec, inputs
         self.graph = None
@@ -169,10 +181,10 @@ class Program:
         self.capture_s = 0.0
         self.last = None  # the entry of the last call
 
-    def __call__(self, static: dict, state, inputs, rung=None):
+    def __call__(self, static: dict, state, inputs, rung=None, device=None):
         if self.programs.mode == "eager":
             return self.fn(state, inputs, **static)
-        entry, leaves = self._entry(static, state, inputs, rung)
+        entry, leaves = self._entry(static, state, inputs, rung, device)
         if self.programs.mode == "plumb":
             if self.programs.poison and entry.outputs is not None:
                 keep = {x.untyped_storage().data_ptr() for x in leaves + entry.state}
@@ -183,7 +195,8 @@ class Program:
             entry.outputs = self.fn(entry.state_tree(), entry.input_tree(), **static)
         else:
             entry.load(leaves)
-            entry.graph.replay()
+            with torch.cuda.device(entry.device):
+                entry.graph.replay()
             for k, n in entry.launches.items():
                 LAUNCHES[k.split(":", 1)[0]] += n
                 LAUNCHES_BY_DEVICE[k] = LAUNCHES_BY_DEVICE.get(k, 0) + n
@@ -191,22 +204,25 @@ class Program:
         self.last = entry
         return entry.outputs
 
-    def prepare(self, static: dict, state, inputs, rung=None) -> None:
+    def prepare(self, static: dict, state, inputs, rung=None, device=None):
         """Capture the key of these arguments now, if it is not yet
-        captured, without running it (the state stays as it is)."""
+        captured, without running it (the state stays as it is); returns
+        its entry (None when eager)."""
         if self.programs.mode != "eager":
-            self._entry(static, state, inputs, rung)
+            return self._entry(static, state, inputs, rung, device)[0]
+        return None
 
-    def _entry(self, static: dict, state, inputs, rung):
+    def _entry(self, static: dict, state, inputs, rung, device):
+        dev = self.programs.device if device is None else torch.device(device)
         state_spec, state_leaves = flatten(state)
         in_spec, leaves = flatten(inputs)
-        key = (tuple(sorted(static.items())), rung, state_spec, in_spec,
+        key = (tuple(sorted(static.items())), rung, dev, state_spec, in_spec,
                tuple(_sig(t) + (t.data_ptr(),) for t in state_leaves), tuple(_sig(t) for t in leaves))
         entry = self.entries.get(key)
         if entry is None:
-            statics = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device).copy_(t)
+            statics = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=dev).copy_(t)
                        for t in leaves]
-            entry = _Entry(static, rung, state_spec, state_leaves, in_spec, statics)
+            entry = _Entry(static, rung, dev, state_spec, state_leaves, in_spec, statics)
             if self.programs.mode == "graph":
                 self._capture(entry)
             self.entries[key] = entry
@@ -215,16 +231,20 @@ class Program:
 
     def _capture(self, entry: _Entry) -> None:
         t0 = time.perf_counter()
-        dev = self.programs.device
+        dev = entry.device
         main = torch.cuda.current_stream(dev)
-        side = self.programs.side_stream()
+        side = self.programs.side_stream(dev)
         side.wait_stream(main)
+        warm = dict(LAUNCHES_BY_DEVICE)
         with torch.cuda.device(dev), torch.cuda.stream(side):
             for _ in range(WARM_ITERS):
                 scratch = [t.clone() for t in entry.state]
                 self.fn(unflatten(entry.state_spec, scratch), entry.input_tree(), **entry.static)
                 del scratch
         main.wait_stream(side)
+        for k, n in LAUNCHES_BY_DEVICE.items():
+            if n != warm.get(k, 0):
+                self.programs.warm_launches[k] = self.programs.warm_launches.get(k, 0) + n - warm.get(k, 0)
         before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
         pool = torch.cuda.graph_pool_handle()
@@ -259,7 +279,8 @@ class Program:
             raise RuntimeError(f"program {self.name}: no captured entry to check")
         counts = _launch_counts()
         start = [t.clone() for t in e.state]
-        e.graph.replay()
+        with torch.cuda.device(e.device):
+            e.graph.replay()
         out_g = [t.clone() for t in flatten(e.outputs)[1]]
         state_g = [t.clone() for t in e.state]
         for t, t0 in zip(e.state, start):
@@ -283,7 +304,8 @@ class Programs:
         self.mode = ("graph" if self.device.type == "cuda" else "plumb") if on else "eager"
         self.poison = False  # plumbing only; for tests
         self.programs: dict[str, Program] = {}
-        self._side = None
+        self._side: dict = {}  # device -> side stream of its captures
+        self.warm_launches: dict = {}  # "kernel:device" -> launches of the eager runs before captures
 
     @property
     def enabled(self) -> bool:
@@ -298,10 +320,11 @@ class Programs:
             raise ValueError(f"program {name!r} exists for another function")
         return p
 
-    def side_stream(self):
-        if self._side is None:
-            self._side = torch.cuda.Stream(self.device)
-        return self._side
+    def side_stream(self, device=None):
+        dev = self.device if device is None else torch.device(device)
+        if dev not in self._side:
+            self._side[dev] = torch.cuda.Stream(dev)
+        return self._side[dev]
 
     def drop(self, rung=None) -> None:
         """Forget every program's entries of rung `rung` (all with None)."""
