@@ -36,7 +36,6 @@ import torch
 
 from eggfusion_tpu_torch.geometry import lie
 from eggfusion_tpu_torch.ops import reduce as gn
-from eggfusion_tpu_torch.ops.image import decimate2d
 from eggfusion_tpu_torch.ops.pyramid import PyramidLevel
 from eggfusion_tpu_torch.utils.device import HostReadback
 from eggfusion_tpu_torch.utils.graphs import Programs
@@ -70,28 +69,26 @@ class TrackerConfig(NamedTuple):
 EARLY_EXIT_ITERATIONS = {"run": 0}
 
 
-_GRID_FIELDS = ("disp", "vertex", "normal", "mask", "intensity")
-
-
 def _one_device(devices, dev) -> bool:
     """Whether a mesh is the single device `dev` (a tensor's device)."""
     return len(devices) == 1 and torch.device(devices[0]) == dev
 
 
+def _rows(level: PyramidLevel, r0: int, r1: int) -> PyramidLevel:
+    """Rows [r0, r1) of every map of a pyramid level (views)."""
+    return level._replace(**{f: getattr(level, f)[r0:r1] for f in level._fields if f != "intr"})
+
+
 def _shard_prep(_state, x, *, shard, stride, k0, k1, full_hw, device):
     """One device's part of a level under a mesh, built on `device`: the
-    constraint grid's strided rows [k0, k1) (from the model level's rows
-    [k0 * stride, k1 * stride), `x[0]`) and the frame level's (`x[1]`)
-    resampling pack. `shard` keys the program apart from the other shards."""
-    model, frame = x
-    model = {k: v.to(device, non_blocking=True) for k, v in model.items()}
-    frame = PyramidLevel(*(t.to(device, non_blocking=True) for t in frame))
-    sl = lambda t: decimate2d(t, stride).contiguous()
-    rows = lambda t: decimate2d(t, stride)[k0:k1].contiguous()
-    grid = gn.ConstraintGrid(disp=sl(model["disp"]), vertex=sl(model["vertex"]), normal=sl(model["normal"]),
-                             mask=sl(model["mask"]), intensity=sl(model["intensity"]), frame_mask=rows(frame.mask),
-                             frame_gradmag=rows(frame.grad[..., 2]), intr=model["intr"], stride=stride, row0=k0,
-                             full_hw=full_hw)
+    constraint grid of the strided rows [k0, k1) (`gn.constraint_grid` of
+    the model level's rows [k0 * stride, k1 * stride), `x[0]`, and the same
+    rows of the frame level `x[1]`) and the frame level's resampling pack.
+    `shard` keys the program apart from the other shards."""
+    model, frame = (PyramidLevel(*(t.to(device, non_blocking=True) for t in lvl)) for lvl in x)
+    grid = gn.constraint_grid(model, _rows(frame, k0 * stride, k1 * stride), stride)
+    grid = grid._replace(row0=k0, full_hw=full_hw, **{f: v.contiguous() for f, v in grid._asdict().items()
+                                                      if isinstance(v, torch.Tensor)})
     return grid, gn.sampling_pack(frame)
 
 
@@ -110,8 +107,7 @@ def _level_shards(model_lvl, frame_lvl, stride: int, devices, prep=None):
     bounds = [hs * i // n for i in range(n + 1)]
     out = []
     for i, (d, k0, k1) in enumerate(zip(devices, bounds, bounds[1:])):
-        model = {f: getattr(model_lvl, f)[k0 * stride:k1 * stride] for f in _GRID_FIELDS}
-        x = ({**model, "intr": model_lvl.intr}, frame_lvl)
+        x = (_rows(model_lvl, k0 * stride, k1 * stride), frame_lvl)
         static = dict(shard=i, stride=stride, k0=k0, k1=k1, full_hw=(hs * stride, ws * stride), device=str(d))
         out.append(_shard_prep(None, x, **static) if prep is None else prep(static, None, x, device=d))
     return out

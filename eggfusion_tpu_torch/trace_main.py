@@ -1,7 +1,7 @@
 """Trace the port's main path on a CUDA GPU and report where the time goes.
 
     python -m eggfusion_tpu_torch.trace_main --frames 48 --warmup 8
-    python -m eggfusion_tpu_torch.trace_main --mesh 1 --frames 32 --warmup 12
+    python -m eggfusion_tpu_torch.trace_main --mesh --frames 32 --warmup 12
 
 Runs `EGGFusion.reconstruct` over the synthetic sequence in the slice
 configuration (`config.slice_config`: `bench.py`'s 1280x704 workload with a
@@ -12,11 +12,10 @@ half of the rest timed without the profiler, then the other half under
 time, device time per frame and by kernel name from the trace (kernels
 replayed from a graph included), the device busy share (device time per
 frame over the untraced frame time), the host-side phase times per frame
-and the programs captured in the timed and traced frames. `--mesh N` traces
-instead the mesh configuration of `mesh_scaling.py`'s 640x480 table at the
-default slab caps (`parallel.mesh.dryrun_config`: 262144 slots, a window
-of 4, the window-batched step every frame) on N GPUs; its device time sums
-every GPU's.
+and the programs captured in the timed and traced frames. `--mesh` traces
+instead the one-GPU row of `mesh_scaling.py`'s 640x480 table at the
+default slab caps (`parallel.mesh.dryrun_config`: `mesh_devices: 1`,
+262144 slots, a window of 4, the window-batched step every frame).
 """
 from __future__ import annotations
 
@@ -40,14 +39,14 @@ def main(argv=None) -> dict:
     parser.add_argument("--frames", type=int, default=48)
     parser.add_argument("--warmup", type=int, default=8)
     parser.add_argument("--top", type=int, default=25, help="kernels listed by device time")
-    parser.add_argument("--mesh", type=int, default=0, help="trace the 640x480 mesh configuration on N GPUs")
+    parser.add_argument("--mesh", action="store_true", help="trace the 640x480 mesh configuration on one GPU")
     args = parser.parse_args(argv)
 
     save_dir = os.path.join("chiprun_out", "trace_main")
     if args.mesh:
         from eggfusion_tpu_torch.parallel.mesh import dryrun_config
 
-        cfg = dryrun_config(args.mesh, 640, 480, args.frames, 262144, {
+        cfg = dryrun_config(1, 640, 480, args.frames, 262144, {
             "Tracking": {"sliding_window_size": 4},
             "System": {"raster_cap": 2048, "opt_raster_cap": 1024, "save_dir": save_dir}})
     else:
@@ -62,21 +61,20 @@ def main(argv=None) -> dict:
     # warm-up, then an untimed-by-profiler half (frame rate), then a traced
     # half (device time: the profiler slows the host, not the kernels)
     mid = (args.warmup + args.frames) // 2
-    sync = lambda: [torch.cuda.synchronize(i) for i in range(torch.cuda.device_count())]
     for fid in range(args.warmup):
         step(fid)
-    sync()
+    torch.cuda.synchronize()
     captures = ef.programs.captures()
     t0 = time.perf_counter()
     for fid in range(args.warmup, mid):
         step(fid)
-    sync()
+    torch.cuda.synchronize()
     untraced_ms = (time.perf_counter() - t0) * 1e3 / (mid - args.warmup)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for fid in range(mid, args.frames):
             step(fid)
-        sync()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     n = args.frames - mid
 
@@ -94,7 +92,7 @@ def main(argv=None) -> dict:
     phase_ms = {p: sum(m[p] for m in metrics) / max(len(metrics), 1) for p in ("track_ms", "map_ms", "post_ms")}
     out = {
         "gpu": torch.cuda.get_device_name(0),
-        "mesh_devices": args.mesh,
+        "mesh_devices": int(args.mesh),
         "captures_after_warmup_frames": ef.programs.captures() - captures,
         "untraced_frames": mid - args.warmup,
         "untraced_ms_per_frame": untraced_ms,
