@@ -17,6 +17,7 @@ import torch
 from eggfusion_tpu_torch.geometry.camera import CameraIntrinsics
 from eggfusion_tpu_torch.ops import image as imops
 from eggfusion_tpu_torch.ops.pyramid import build_pyramid
+from eggfusion_tpu_torch.utils import trace
 
 
 def prepare_frame_inputs(color_u8, depth_raw, mask, depth_scale: float, bilateral: str = "exact"):
@@ -60,7 +61,8 @@ def _frame_program(_state, x, **static):
 class Frame:
     """Frame on a device: `.color`, `.depth`, `.mask`, `.pyramid` tensors.
     `programs` (a `utils.graphs.Programs`) runs the preparation as its
-    "frame" program."""
+    "frame" program. The upload and the preparation run under the span
+    "frame" (`utils/trace.py`)."""
 
     def __init__(self, uid: int, ts: float, color_u8, depth_raw, mask, gt_pose_w2c: np.ndarray,
                  intr: CameraIntrinsics, depth_scale: float, device, nlevel: int = 3,
@@ -69,7 +71,6 @@ class Frame:
         self.uid = uid
         self.ts = float(ts)
         self.device = torch.device(device)
-        self.intr = intr.as_tensor(self.device)
         self.width, self.height = intr.width, intr.height
         self.gt_w2c = np.asarray(gt_pose_w2c, np.float32)
         self.sparse_tracking = False  # the tracker's seed came from the sparse frontend
@@ -77,15 +78,17 @@ class Frame:
         self._gt_w2c_dev = None
         to = lambda x: torch.as_tensor(x, device=self.device)
 
-        if isinstance(depth_raw, np.ndarray) and depth_raw.dtype == np.uint16:
-            depth_raw = depth_raw.astype(np.int32)  # exact; CUDA has few uint16 operations
-        x = (to(color_u8), to(depth_raw), to(mask), self.intr)
-        static = dict(depth_scale=float(depth_scale), nlevel=nlevel, bilateral=bilateral,
-                      prefiltered=prefiltered, filter_depth=filter_depth)
-        if programs is None:
-            out = frame_inputs(*x, **static)
-        else:
-            out = programs.program("frame", _frame_program)(static, None, x)
+        with trace.span("frame"):
+            self.intr = intr.as_tensor(self.device)
+            if isinstance(depth_raw, np.ndarray) and depth_raw.dtype == np.uint16:
+                depth_raw = depth_raw.astype(np.int32)  # exact; CUDA has few uint16 operations
+            x = (to(color_u8), to(depth_raw), to(mask), self.intr)
+            static = dict(depth_scale=float(depth_scale), nlevel=nlevel, bilateral=bilateral,
+                          prefiltered=prefiltered, filter_depth=filter_depth)
+            if programs is None:
+                out = frame_inputs(*x, **static)
+            else:
+                out = programs.program("frame", _frame_program)(static, None, x)
         self.color, self.depth, self.mask, self.pyramid = out
 
     def update_transform_gt(self) -> None:

@@ -32,6 +32,12 @@ Device scalars the host needs (fusion stats, losses, pose deltas, map
 counts) are copied asynchronously and read `count_lag` frames later, as in
 the JAX module. The surfel map is updated in place where the JAX code
 donates it.
+
+`mapping` runs its phases under the spans "map_update" (the rung, the
+update program and its lagged reads), "maintain" (prune, compaction) and
+"window_opt" (the window's members, keyframe decisions and the
+optimization's steps) of `utils/trace.py`; a read that blocks the host runs
+under "readback".
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ import torch
 from eggfusion_tpu_torch.core import surfels as sf
 from eggfusion_tpu_torch.ops import fusion
 from eggfusion_tpu_torch.ops import raster_tile as rt
+from eggfusion_tpu_torch.utils import trace
 from eggfusion_tpu_torch.utils.device import HostReadback
 from eggfusion_tpu_torch.utils.graphs import Programs
 
@@ -236,8 +243,11 @@ class KeyFrame:
         }
         self.storage = storage
         self.device = frame.intr.device
-        self.maps = ({k: v.cpu().numpy() for k, v in maps.items()} if storage == "host"
-                     else {k: v.clone() for k, v in maps.items()})
+        if storage == "host":
+            with trace.waiting("readback"):
+                self.maps = {k: v.cpu().numpy() for k, v in maps.items()}
+        else:
+            self.maps = {k: v.clone() for k, v in maps.items()}
 
     def device_maps(self) -> dict:
         if self.storage == "host":
@@ -284,7 +294,8 @@ class KeyFrameManager:
         if ready:
             mag = ready[-1].numpy()
         else:  # no aged observation: synchronous check
-            mag = _relative_pose_mag(self.keyframes[self.ids()[-1]].w2c, kf.w2c).cpu().numpy()
+            with trace.waiting("readback"):
+                mag = _relative_pose_mag(self.keyframes[self.ids()[-1]].w2c, kf.w2c).cpu().numpy()
         if float(mag[0]) > self.check_R or float(mag[1]) > self.check_t:
             self._accept(kf)
             return True
@@ -883,7 +894,8 @@ class Mapping:
         rung = self._bucket(need + self._spawn_margin)
         if rung >= self.surfels.capacity or self.time < self._shrink_cooldown:
             return
-        wm = int(self.surfels.count)
+        with trace.waiting("readback"):
+            wm = int(self.surfels.count)
         if wm <= rung:
             self._move_to_rung(rung)
             self._invalidate_capacity_state()
@@ -940,64 +952,67 @@ class Mapping:
         first = self.time == 0
         amortized = self.mcfg.opt_schedule == "amortized"
         opt_frame = self.time % self.mcfg.sw_optimize_freq == 0
-        if self.bucketing:
-            self._ensure_capacity()
-        elif self.settled_skip:
-            self._consume_counts()  # the settledness signal without the ladder
-        if self.programs.enabled and self.surfels.capacity not in self._captured_rungs:
-            self.capture_rung(frame_map, frame.w2c_matrix(), frame.intr, frame.width, frame.height, first=first)
-        if self.settled_skip:
-            self._observe_motion(frame)
-        full_post = True if amortized else not opt_frame
-        leak = fail_streak >= self.gate_leak_streak > 0
-        suspect = 0 < fail_streak and not leak
-        conv = None
-        if self.gate_fusion and not leak:
-            conv = getattr(frame, "tracking_map_ok", getattr(frame, "tracking_converged", None))
-        # only on fused-model-map frames: burst-schedule optimization frames
-        # render after the optimization anyway
-        skip = not first and full_post and self._skip_render_ok(fail_streak)
-        static, x = self._update_args(frame_map, frame.w2c_matrix(), frame.intr, frame.width, frame.height,
-                                      first, full_post, conv, not skip, self.model_cap)
-        with torch.no_grad():
-            model_map, stats_vec = self._p_update(static, self.surfels, x, rung=self.surfels.capacity)
-        self._skip_last = skip
-        if skip:
-            self.render_skips += 1
-            self.skip_frames.append(self.time)
-            model_map = KEEP_MODEL_MAP
-        if stats_vec is not None:
-            self._stats_pending.append((self.time, HostReadback(stats_vec)))
-        while self._stats_pending and self._stats_pending[0][0] <= self.time - self.count_lag:
-            t, ref = self._stats_pending.popleft()
-            v = ref.numpy()
-            self.fusion_stats[t] = (int(v[0]), int(v[1]))
-            if int(v[2]) >= 0:
-                self._observe_occupancy(int(v[2]))
-        if self.bucketing or self.settled_skip:
-            self._count_pending.append((self.time, HostReadback(self.surfels.count)))
+        with trace.span("map_update"):
+            if self.bucketing:
+                self._ensure_capacity()
+            elif self.settled_skip:
+                self._consume_counts()  # the settledness signal without the ladder
+            if self.programs.enabled and self.surfels.capacity not in self._captured_rungs:
+                self.capture_rung(frame_map, frame.w2c_matrix(), frame.intr, frame.width, frame.height, first=first)
+            if self.settled_skip:
+                self._observe_motion(frame)
+            full_post = True if amortized else not opt_frame
+            leak = fail_streak >= self.gate_leak_streak > 0
+            suspect = 0 < fail_streak and not leak
+            conv = None
+            if self.gate_fusion and not leak:
+                conv = getattr(frame, "tracking_map_ok", getattr(frame, "tracking_converged", None))
+            # only on fused-model-map frames: burst-schedule optimization frames
+            # render after the optimization anyway
+            skip = not first and full_post and self._skip_render_ok(fail_streak)
+            static, x = self._update_args(frame_map, frame.w2c_matrix(), frame.intr, frame.width, frame.height,
+                                          first, full_post, conv, not skip, self.model_cap)
+            with torch.no_grad():
+                model_map, stats_vec = self._p_update(static, self.surfels, x, rung=self.surfels.capacity)
+            self._skip_last = skip
+            if skip:
+                self.render_skips += 1
+                self.skip_frames.append(self.time)
+                model_map = KEEP_MODEL_MAP
+            if stats_vec is not None:
+                self._stats_pending.append((self.time, HostReadback(stats_vec)))
+            while self._stats_pending and self._stats_pending[0][0] <= self.time - self.count_lag:
+                t, ref = self._stats_pending.popleft()
+                v = ref.numpy()
+                self.fusion_stats[t] = (int(v[0]), int(v[1]))
+                if int(v[2]) >= 0:
+                    self._observe_occupancy(int(v[2]))
+            if self.bucketing or self.settled_skip:
+                self._count_pending.append((self.time, HostReadback(self.surfels.count)))
 
-        if self._maint_pending is not None:
-            self._maintain_finish()
-        if self.mcfg.prune_freq > 0 and self.time > 0 and self.time % self.mcfg.prune_freq == 0:
-            self.maintain_map(defer=True)
+        with trace.span("maintain"):
+            if self._maint_pending is not None:
+                self._maintain_finish()
+            if self.mcfg.prune_freq > 0 and self.time > 0 and self.time % self.mcfg.prune_freq == 0:
+                self.maintain_map(defer=True)
 
-        if self.time % self.mcfg.sw_add_freq == 0 and not suspect:
-            self.keyframe_manager.sliding_window.append(
-                KeyFrame(frame, frame_map, self.time, -1, self.keyframe_manager.storage))
-            if self.devices is not None and self.programs.enabled and not first:
-                self._prepare_window_step(amortized)
-        if suspect:
-            pass  # no keyframe decisions from a failure-streak pose
-        elif opt_frame:
-            self.keyframe_manager.check_keyframe(frame, frame_map, self.time)
-        else:
-            self.keyframe_manager.observe(frame, self.time)
-        if first or not amortized:
-            if opt_frame:
-                self.frame_batch_optimization(frame)
-        else:
-            self._amortized_opt()
+        with trace.span("window_opt"):
+            if self.time % self.mcfg.sw_add_freq == 0 and not suspect:
+                self.keyframe_manager.sliding_window.append(
+                    KeyFrame(frame, frame_map, self.time, -1, self.keyframe_manager.storage))
+                if self.devices is not None and self.programs.enabled and not first:
+                    self._prepare_window_step(amortized)
+            if suspect:
+                pass  # no keyframe decisions from a failure-streak pose
+            elif opt_frame:
+                self.keyframe_manager.check_keyframe(frame, frame_map, self.time)
+            else:
+                self.keyframe_manager.observe(frame, self.time)
+            if first or not amortized:
+                if opt_frame:
+                    self.frame_batch_optimization(frame)
+            else:
+                self._amortized_opt()
         self.time += 1
         return model_map
 
@@ -1031,7 +1046,9 @@ class Mapping:
         if defer:
             self._maint_pending = (self.time, HostReadback(cnt), HostReadback(act))
             return
-        self._maintain_decide(int(cnt), int(act), self.time)
+        with trace.waiting("readback"):
+            cnt, act = int(cnt), int(act)
+        self._maintain_decide(cnt, act, self.time)
 
     def _maintain_finish(self) -> None:
         t, cnt, act = self._maint_pending

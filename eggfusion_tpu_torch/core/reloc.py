@@ -17,10 +17,14 @@ import numpy as np
 import torch
 
 from eggfusion_tpu_torch.ops.pyramid import RGB_COEFF
+from eggfusion_tpu_torch.utils import trace
 
 
 def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    if isinstance(x, torch.Tensor):
+        with trace.waiting("readback"):
+            return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def _to_gray_u8(color_map) -> np.ndarray:

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from eggfusion_tpu_torch.utils import trace
+
 
 def gray_u8(frame) -> np.ndarray:
     """A frontend's image: the frame's intensity * 255, truncated."""
@@ -28,7 +30,8 @@ def carried_state(result, frame, prev):
     if result is not None:
         return result
     if getattr(frame, "_w2c", None) is not None:
-        return frame.w2c_matrix().cpu().numpy().astype(np.float64)
+        with trace.waiting("readback"):
+            return frame.w2c_matrix().cpu().numpy().astype(np.float64)
     if prev is not None:
         return prev[3]
     return np.eye(4)
@@ -57,8 +60,9 @@ class NativeSparseInitializer:
     gray_u8 = staticmethod(gray_u8)
 
     def track(self, frame) -> np.ndarray | None:
-        gray = gray_u8(frame)
-        depth = frame.depth[..., 0].cpu().numpy().astype(np.float32)
+        with trace.waiting("readback"):
+            gray = gray_u8(frame)
+            depth = frame.depth[..., 0].cpu().numpy().astype(np.float32)
         kps, desc = self._nsp.detect(gray, threshold=self.threshold, max_kp=self.max_kp)
         result = None
         if self.prev is not None and len(kps) >= 3 and len(self.prev[0]) >= 3:
@@ -94,8 +98,9 @@ class OpenCVSparseInitializer:
 
     def track(self, frame) -> np.ndarray | None:
         cv2 = self._cv2
-        gray = gray_u8(frame)
-        depth = frame.depth[..., 0].cpu().numpy()
+        with trace.waiting("readback"):
+            gray = gray_u8(frame)
+            depth = frame.depth[..., 0].cpu().numpy()
         kps, desc = self.orb.detectAndCompute(gray, None)
         result = None
         if self.prev is not None and desc is not None and self.prev[1] is not None:

@@ -37,6 +37,7 @@ import torch
 from eggfusion_tpu_torch.geometry import lie
 from eggfusion_tpu_torch.ops import reduce as gn
 from eggfusion_tpu_torch.ops.pyramid import PyramidLevel
+from eggfusion_tpu_torch.utils import trace
 from eggfusion_tpu_torch.utils.device import HostReadback
 from eggfusion_tpu_torch.utils.graphs import Programs
 
@@ -196,7 +197,9 @@ def dense_track(pyr_model, pyr_frame, init_delta: torch.Tensor, cfg: TrackerConf
                 device=dev)
             if cfg.early_exit:
                 EARLY_EXIT_ITERATIONS["run"] += 1
-                if bool(stop[0]):
+                with trace.waiting("readback"):
+                    stop = bool(stop[0])
+                if stop:
                     break
     return delta, converged, last_rms, last_n
 
@@ -366,6 +369,10 @@ class Tracker:
         self._conv_pending.clear()
 
     def tracking(self, frame, model_map) -> None:
+        with trace.span("track"):
+            self._tracking(frame, model_map)
+
+    def _tracking(self, frame, model_map) -> None:
         if self.only_mapping or not self.initialized:
             self.initialized = True
             frame.update_transform_gt()

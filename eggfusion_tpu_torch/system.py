@@ -51,6 +51,7 @@ from eggfusion_tpu_torch.io import ply as plyio
 from eggfusion_tpu_torch.ops import image as imops
 from eggfusion_tpu_torch.ops.pyramid import build_pyramid
 from eggfusion_tpu_torch.utils import eval as evalu
+from eggfusion_tpu_torch.utils import trace
 from eggfusion_tpu_torch.utils.device import resolve_device
 from eggfusion_tpu_torch.utils.graphs import Programs
 
@@ -295,13 +296,13 @@ class EGGFusion:
         for axis, deg in hyps:
             seed = torch.as_tensor(rot(axis, deg), device=self.device)
             delta, conv, rms, n_icp = dense_track(pm, pf, seed, coarse_cfg, self.tracker.devices)
-            ok = bool(conv) or (cfg.commit_min_count > 0 and float(rms) < cfg.commit_rms_m
-                                and float(n_icp) >= cfg.commit_min_count)
+            with trace.waiting("readback"):
+                conv, rms, n_icp = bool(conv), float(rms), float(n_icp)
+            ok = conv or (cfg.commit_min_count > 0 and rms < cfg.commit_rms_m and n_icp >= cfg.commit_min_count)
             if ok:
                 n_conv += 1
-                score = float(rms)
-                if best is None or score < best[0]:
-                    best = (score, delta)
+                if best is None or rms < best[0]:
+                    best = (rms, delta)
         if best is not None:
             self.tracker.seed_override = best[1]
         return n_conv
@@ -312,7 +313,11 @@ class EGGFusion:
         its best-matching keyframe; (2) the last pose whose dense solve
         converged; (3) the last keyframe. The model view is rendered anew at
         the anchor and the motion model cleared; a record goes to
-        `metrics`."""
+        `metrics`. Runs under the span "recover"."""
+        with trace.span("recover"):
+            return self._recover(frame)
+
+    def _recover(self, frame) -> bool:
         km = self.mapper.keyframe_manager
         anchor = anchor_id = None
         reloc_inliers = 0
@@ -346,6 +351,11 @@ class EGGFusion:
     # ---- per-frame pipeline -------------------------------------------------
 
     def reconstruct(self, frame) -> None:
+        """Track, map and render one frame, and append its record to
+        `metrics`: host ms of tracking (`track_ms`), preprocess and mapping
+        (`map_ms`) and the model view (`post_ms`); of those and of the frame's
+        preparation before it, host ms blocked on reads of the device
+        (`readback_ms`) and making program entries (`capture_ms`)."""
         t0 = _time.perf_counter()
         if self.model_map is not None and self.tracker.needs_recovery():
             self._recover_tracking(frame)
@@ -378,6 +388,7 @@ class EGGFusion:
             "surfels": self.mapper.surfels.num_active(),  # device scalar, read lazily
             "capacity": self.mapper.surfels.capacity,
             "opt_steps": self.mapper.opt_steps_total,
+            **trace.take_waits(),
         }
         if self.mapper.settled_skip:
             rec["render_skips"] = self.mapper.render_skips
@@ -394,18 +405,20 @@ class EGGFusion:
         self.metrics.append(rec)
 
     def preprocess(self, frame) -> None:
-        p0 = frame.pyramid[0]
-        x = (frame.color, frame.depth, p0.vertex, p0.normal, frame.mask, frame.intr, frame.w2c_matrix())
-        self.frame_map = self.programs.program("preprocess", _preprocess_program)(
-            {"reco_normal_thres": self.reco_normal_thres}, None, x)
+        with trace.span("preprocess"):
+            p0 = frame.pyramid[0]
+            x = (frame.color, frame.depth, p0.vertex, p0.normal, frame.mask, frame.intr, frame.w2c_matrix())
+            self.frame_map = self.programs.program("preprocess", _preprocess_program)(
+                {"reco_normal_thres": self.reco_normal_thres}, None, x)
 
     def postprocess(self, frame) -> None:
         """Render the model at the frame's pose (at 1/model_view_down) and
         build the next tracking model map."""
         s = self.mapper.surfels
-        self.model_map = self._p_post(
-            {"width": frame.width, "height": frame.height, "down": self.mv_down}, s,
-            {"frame_map": self.frame_map, "w2c": frame.w2c_matrix(), "intr": frame.intr}, rung=s.capacity)
+        with trace.span("model_view"):
+            self.model_map = self._p_post(
+                {"width": frame.width, "height": frame.height, "down": self.mv_down}, s,
+                {"frame_map": self.frame_map, "w2c": frame.w2c_matrix(), "intr": frame.intr}, rung=s.capacity)
 
     def append_trajectory(self, frame) -> None:
         # the estimate stays a device handle; `_traj_np` converts in bulk

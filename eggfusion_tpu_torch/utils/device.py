@@ -10,6 +10,8 @@ import subprocess
 
 import torch
 
+from eggfusion_tpu_torch.utils import trace
+
 
 def gpu_name_and_limit() -> str | None:
     """The first GPU's name and power limit as `nvidia-smi
@@ -67,6 +69,7 @@ class HostReadback:
             self._buf = t.clone()
 
     def numpy(self):
-        if self._event is not None:
-            self._event.synchronize()
-        return self._buf.numpy()
+        with trace.waiting("readback"):
+            if self._event is not None:
+                self._event.synchronize()
+            return self._buf.numpy()

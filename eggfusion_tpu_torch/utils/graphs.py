@@ -42,6 +42,10 @@ another device: loading them into the static buffers is the peer copy. The
 device is part of the key, and so is a mesh shard's index (a static), so two
 shards on one device keep their own outputs.
 
+Making an entry (its static inputs, and in "graph" mode the warm runs and
+the capture) runs under the span "capture" (`utils/trace.py`), whose host
+time goes into the frame's `capture_ms`.
+
 Kernel launches: `raster_tile.LAUNCHES` (and `LAUNCHES_BY_DEVICE`) count
 calls of the kernel wrappers, which a replay does not make. Each entry
 records the launches its capture made, by device (and takes them back out:
@@ -58,6 +62,7 @@ import time
 import torch
 
 from eggfusion_tpu_torch.ops.raster_tile import LAUNCHES, LAUNCHES_BY_DEVICE
+from eggfusion_tpu_torch.utils import trace
 
 # eager runs of a program before its capture (on clones of its state)
 WARM_ITERS = 2
@@ -220,11 +225,12 @@ class Program:
                tuple(_sig(t) + (t.data_ptr(),) for t in state_leaves), tuple(_sig(t) for t in leaves))
         entry = self.entries.get(key)
         if entry is None:
-            statics = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=dev).copy_(t)
-                       for t in leaves]
-            entry = _Entry(static, rung, dev, state_spec, state_leaves, in_spec, statics)
-            if self.programs.mode == "graph":
-                self._capture(entry)
+            with trace.waiting("capture"):
+                statics = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=dev).copy_(t)
+                           for t in leaves]
+                entry = _Entry(static, rung, dev, state_spec, state_leaves, in_spec, statics)
+                if self.programs.mode == "graph":
+                    self._capture(entry)
             self.entries[key] = entry
             self.captures += 1
         return entry, leaves
