@@ -18,6 +18,7 @@ from eggfusion_tpu_torch.geometry.camera import CameraIntrinsics
 from eggfusion_tpu_torch.ops import image as imops
 from eggfusion_tpu_torch.ops.pyramid import build_pyramid
 from eggfusion_tpu_torch.utils import trace
+from eggfusion_tpu_torch.utils.device import upload
 
 
 def prepare_frame_inputs(color_u8, depth_raw, mask, depth_scale: float, bilateral: str = "exact"):
@@ -62,7 +63,11 @@ class Frame:
     """Frame on a device: `.color`, `.depth`, `.mask`, `.pyramid` tensors.
     `programs` (a `utils.graphs.Programs`) runs the preparation as its
     "frame" program. The upload and the preparation run under the span
-    "frame" (`utils/trace.py`)."""
+    "frame" (`utils/trace.py`). Host arrays go to a CUDA device through
+    pinned staging buffers (`utils.device.upload`), so the host queues the
+    frame without waiting for the device; to the CPU they are copied;
+    tensors are taken as they are. The intrinsics tensor is shared
+    (`CameraIntrinsics.on_device`)."""
 
     def __init__(self, uid: int, ts: float, color_u8, depth_raw, mask, gt_pose_w2c: np.ndarray,
                  intr: CameraIntrinsics, depth_scale: float, device, nlevel: int = 3,
@@ -76,13 +81,18 @@ class Frame:
         self.sparse_tracking = False  # the tracker's seed came from the sparse frontend
         self._w2c = None
         self._gt_w2c_dev = None
-        to = lambda x: torch.as_tensor(x, device=self.device)
+        def to(x, dtype=None):
+            if not isinstance(x, np.ndarray):
+                return torch.as_tensor(x, device=self.device)
+            if self.device.type == "cuda":
+                return upload(x, self.device, dtype)
+            return torch.as_tensor(x if dtype is None else x.astype(dtype), device=self.device)
 
         with trace.span("frame"):
-            self.intr = intr.as_tensor(self.device)
-            if isinstance(depth_raw, np.ndarray) and depth_raw.dtype == np.uint16:
-                depth_raw = depth_raw.astype(np.int32)  # exact; CUDA has few uint16 operations
-            x = (to(color_u8), to(depth_raw), to(mask), self.intr)
+            self.intr = intr.on_device(self.device)
+            # uint16 depth widened to int32: exact; CUDA has few uint16 operations
+            widen = np.int32 if isinstance(depth_raw, np.ndarray) and depth_raw.dtype == np.uint16 else None
+            x = (to(color_u8), to(depth_raw, widen), to(mask), self.intr)
             static = dict(depth_scale=float(depth_scale), nlevel=nlevel, bilateral=bilateral,
                           prefiltered=prefiltered, filter_depth=filter_depth)
             if programs is None:

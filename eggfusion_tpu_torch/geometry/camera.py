@@ -1,10 +1,11 @@
 """Pinhole camera model (port of `eggfusion_tpu/geometry/camera.py`).
 
 `CameraIntrinsics` is a hashable NamedTuple of Python floats; `as_tensor`
-puts (fx, fy, cx, cy) on a device.
+puts (fx, fy, cx, cy) on a device, `on_device` keeps that tensor for reuse.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -57,3 +58,14 @@ class CameraIntrinsics(NamedTuple):
     def as_tensor(self, device=None, dtype=torch.float32) -> torch.Tensor:
         """(fx, fy, cx, cy) as a tensor on `device`."""
         return torch.tensor([self.fx, self.fy, self.cx, self.cy], dtype=dtype, device=device)
+
+    def on_device(self, device) -> torch.Tensor:
+        """`as_tensor(device)` made once per intrinsics and device, and
+        shared by every caller after: a frame's intrinsics cost no upload.
+        Read-only: no caller writes into it."""
+        return _on_device(self, torch.device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _on_device(intr: CameraIntrinsics, device: torch.device) -> torch.Tensor:
+    return intr.as_tensor(device)

@@ -355,7 +355,8 @@ class EGGFusion:
         `metrics`: host ms of tracking (`track_ms`), preprocess and mapping
         (`map_ms`) and the model view (`post_ms`); of those and of the frame's
         preparation before it, host ms blocked on reads of the device
-        (`readback_ms`) and making program entries (`capture_ms`)."""
+        (`readback_ms`), making program entries (`capture_ms`) and on the
+        staging buffers of the frame's upload (`upload_ms`)."""
         t0 = _time.perf_counter()
         if self.model_map is not None and self.tracker.needs_recovery():
             self._recover_tracking(frame)

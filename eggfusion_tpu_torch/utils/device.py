@@ -1,13 +1,15 @@
-"""Device selection, the GPU's name and power limit, and host readbacks that
-do not stall the device queue.
+"""Device selection, the GPU's name and power limit, and host readbacks and
+uploads that do not stall the device queue.
 
 No JAX counterpart: JAX picks its platform globally and starts async copies
 with `Array.copy_to_host_async`; here both are explicit.
 """
 from __future__ import annotations
 
+import itertools
 import subprocess
 
+import numpy as np
 import torch
 
 from eggfusion_tpu_torch.utils import trace
@@ -73,3 +75,46 @@ class HostReadback:
             if self._event is not None:
                 self._event.synchronize()
             return self._buf.numpy()
+
+
+# `upload`'s page-locked staging buffers, in turn, per device, shape and dtype
+UPLOAD_SLOTS = 3
+_STAGING: dict = {}  # (device, shape, numpy dtype) -> cycle of (pinned tensor, its numpy view, event)
+
+
+def stage(a: np.ndarray, buf: np.ndarray) -> None:
+    """Write host array `a` into the staging buffer `buf`, cast to its dtype
+    as `astype` casts (uint16 depth widened to int32): the cast and the
+    staging in one host pass."""
+    np.copyto(buf, a, casting="unsafe")
+
+
+def upload(a: np.ndarray, device: torch.device, dtype=None) -> torch.Tensor:
+    """Host array `a` (cast to the numpy `dtype` as `astype` casts it, if
+    given) as a new tensor on CUDA `device`, without blocking the host
+    thread: `a` is written into a pinned staging buffer (the cast and the
+    staging are one host pass) and copied from it on the device's current
+    stream; an event marks the copy's end.
+
+    Each device, shape and dtype has a ring of `UPLOAD_SLOTS` buffers, taken
+    in turn. A buffer is rewritten only once its previous copy has run: the
+    host waits for that event under `trace.waiting("upload")`, which happens
+    only when the host runs more than `UPLOAD_SLOTS` uploads ahead of the
+    device. The buffers live as long as the process, like the CUDA
+    allocator's cache."""
+    dt = np.dtype(a.dtype if dtype is None else dtype)
+    key = (device, a.shape, dt)
+    ring = _STAGING.get(key)
+    if ring is None:
+        tdtype = torch.from_numpy(np.empty(0, dt)).dtype
+        pinned = [torch.empty(a.shape, dtype=tdtype, pin_memory=True) for _ in range(UPLOAD_SLOTS)]
+        ring = _STAGING[key] = itertools.cycle([(t, t.numpy(), torch.cuda.Event()) for t in pinned])
+    pinned, view, event = next(ring)
+    if not event.query():
+        with trace.waiting("upload"):
+            event.synchronize()
+    stage(a, view)
+    out = torch.empty(pinned.shape, dtype=pinned.dtype, device=device)
+    out.copy_(pinned, non_blocking=True)
+    event.record(torch.cuda.current_stream(out.device))
+    return out

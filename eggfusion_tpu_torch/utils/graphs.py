@@ -76,43 +76,46 @@ def flatten(tree):
     dataclasses; anything else that is not a tensor is part of the spec (a
     constant baked into the program)."""
     leaves = []
+    return _walk(tree, leaves), leaves
 
-    def walk(x):
-        if isinstance(x, torch.Tensor):
-            leaves.append(x)
-            return "T"
-        if isinstance(x, dict):
-            return ("D", tuple(x), tuple(walk(v) for v in x.values()))
-        if isinstance(x, (tuple, list)):
-            return ("S", type(x), tuple(walk(v) for v in x))
-        if dataclasses.is_dataclass(x) and not isinstance(x, type):
-            names = tuple(f.name for f in dataclasses.fields(x))
-            return ("C", type(x), names, tuple(walk(getattr(x, n)) for n in names))
-        return ("V", x)
 
-    return walk(tree), leaves
+# `_walk` and `_build` are module functions, not closures: a recursive
+# closure is a reference cycle, and its cell would hold every tensor it saw
+# until the garbage collector ran, so the device's peak would follow when
+# the collector runs
+def _walk(x, leaves: list):
+    if isinstance(x, torch.Tensor):
+        leaves.append(x)
+        return "T"
+    if isinstance(x, dict):
+        return ("D", tuple(x), tuple(_walk(v, leaves) for v in x.values()))
+    if isinstance(x, (tuple, list)):
+        return ("S", type(x), tuple(_walk(v, leaves) for v in x))
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        names = tuple(f.name for f in dataclasses.fields(x))
+        return ("C", type(x), names, tuple(_walk(getattr(x, n), leaves) for n in names))
+    return ("V", x)
 
 
 def unflatten(spec, leaves):
-    it = iter(leaves)
+    return _build(spec, iter(leaves))
 
-    def build(sp):
-        if sp == "T":
-            return next(it)
-        kind = sp[0]
-        if kind == "D":
-            return dict(zip(sp[1], (build(c) for c in sp[2])))
-        if kind == "S":
-            items = [build(c) for c in sp[2]]
-            typ = sp[1]
-            if typ is list:
-                return items
-            return typ(*items) if hasattr(typ, "_fields") else typ(items)
-        if kind == "C":
-            return sp[1](**dict(zip(sp[2], (build(c) for c in sp[3]))))
-        return sp[1]
 
-    return build(spec)
+def _build(sp, it):
+    if sp == "T":
+        return next(it)
+    kind = sp[0]
+    if kind == "D":
+        return dict(zip(sp[1], (_build(c, it) for c in sp[2])))
+    if kind == "S":
+        items = [_build(c, it) for c in sp[2]]
+        typ = sp[1]
+        if typ is list:
+            return items
+        return typ(*items) if hasattr(typ, "_fields") else typ(items)
+    if kind == "C":
+        return sp[1](**dict(zip(sp[2], (_build(c, it) for c in sp[3]))))
+    return sp[1]
 
 
 def _sig(t: torch.Tensor) -> tuple:

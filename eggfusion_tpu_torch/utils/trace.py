@@ -20,11 +20,13 @@ check when no profiler runs. The spans of a frame:
   capture     a new program entry: its static inputs and, on CUDA, its
               eager warm runs and graph capture (`utils/graphs.py`)
   readback    the host blocked on the device for a value
+  upload      the host blocked on a staging buffer of a frame's upload whose
+              previous copy has not run yet (`utils/device.py`)
 
-`capture` and `readback` (through `waiting`) also add their host seconds to
-counters that `EGGFusion.reconstruct` takes into each frame's record
-(`capture_ms`, `readback_ms`) whether or not a profiler runs. The counters
-are process-wide, like `raster_tile.LAUNCHES`.
+`capture`, `readback` and `upload` (through `waiting`) also add their host
+seconds to counters that `EGGFusion.reconstruct` takes into each frame's
+record (`capture_ms`, `readback_ms`, `upload_ms`) whether or not a profiler
+runs. The counters are process-wide, like `raster_tile.LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ import torch
 _OFF = contextlib.nullcontext()
 
 # host seconds since the last `take_waits`
-_WAIT_S = {"readback": 0.0, "capture": 0.0}
+_WAIT_S = {"readback": 0.0, "capture": 0.0, "upload": 0.0}
 
 
 def span(name: str):
@@ -48,8 +50,8 @@ def span(name: str):
 
 @contextlib.contextmanager
 def waiting(kind: str):
-    """Span `kind` ("readback" or "capture") whose host seconds add to the
-    frame's counter of that kind."""
+    """Span `kind` ("readback", "capture" or "upload") whose host seconds
+    add to the frame's counter of that kind."""
     t0 = time.perf_counter()
     try:
         with span(kind):
@@ -59,7 +61,8 @@ def waiting(kind: str):
 
 
 def take_waits() -> dict:
-    """`readback_ms` and `capture_ms` since the last call; resets both."""
-    out = {"readback_ms": _WAIT_S["readback"] * 1e3, "capture_ms": _WAIT_S["capture"] * 1e3}
-    _WAIT_S["readback"] = _WAIT_S["capture"] = 0.0
+    """`readback_ms`, `capture_ms` and `upload_ms` since the last call;
+    resets them."""
+    out = {f"{kind}_ms": s * 1e3 for kind, s in _WAIT_S.items()}
+    _WAIT_S.update(dict.fromkeys(_WAIT_S, 0.0))
     return out

@@ -20,6 +20,9 @@ the same inputs, bit for bit; run them there with
 
     python -m pytest --noconftest tests/test_torch_graphs.py -q -m cuda
 """
+import gc
+import weakref
+
 import pytest
 import torch
 
@@ -91,6 +94,24 @@ def test_graphs_argument(tmp_path):
     assert EGGFusion(cfg, device="cpu").programs.mode == "eager"
     assert EGGFusion(cfg, device="cpu", graphs=True).programs.mode == "plumb"
     assert EGGFusion(cfg, device="cpu", graphs=False).programs.mode == "eager"
+
+
+def test_pytrees_hold_no_tensor_past_the_call():
+    """`flatten` / `unflatten` make no reference cycle: a tensor they saw is
+    freed when its last reference goes, with the garbage collector off (a
+    cycle would hold a program's inputs, on the card device memory, until
+    the collector ran)."""
+    t = torch.zeros(3)
+    ref = weakref.ref(t)
+    gc.disable()
+    try:
+        spec, leaves = graphs.flatten({"a": (t, 1), "b": [t]})
+        tree = graphs.unflatten(spec, leaves)
+        assert tree["a"][0] is t and tree["a"][1] == 1 and tree["b"][0] is t
+        del t, leaves, tree
+        assert ref() is None
+    finally:
+        gc.enable()
 
 
 def test_poison_catches_a_kept_output():

@@ -7,7 +7,7 @@ on the burst schedule with an optimization every frame (so
 reads the device at once) and maintenance every frame, with a recovery
 forced by a failure streak at frame 1. Under the profiler, over frame 1,
 every span of the frame path opens; with no profiler running none is made;
-every frame record carries the two wait counters.
+every frame record carries the three wait counters.
 """
 import pytest
 import torch
@@ -91,8 +91,8 @@ def test_frame_records_carry_the_waits(run):
     recs = [m for m in ef.metrics if m.get("frame", -1) >= 0]
     assert len(recs) >= N_FRAMES
     for m in recs:
-        for key in ("readback_ms", "capture_ms"):
+        for key in ("readback_ms", "capture_ms", "upload_ms"):
             assert isinstance(m[key], float) and m[key] >= 0.0, (key, m)
     assert recs[0]["capture_ms"] > 0.0  # frame 0 makes its programs' entries
     assert any(m["readback_ms"] > 0.0 for m in recs)
-    assert trace.take_waits() == {"readback_ms": 0.0, "capture_ms": 0.0}
+    assert trace.take_waits() == {"readback_ms": 0.0, "capture_ms": 0.0, "upload_ms": 0.0}
