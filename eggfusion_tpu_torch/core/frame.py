@@ -65,7 +65,8 @@ class Frame:
     "frame" program. The upload and the preparation run under the span
     "frame" (`utils/trace.py`). Host arrays go to a CUDA device through
     pinned staging buffers (`utils.device.upload`), so the host queues the
-    frame without waiting for the device; to the CPU they are copied;
+    frame without waiting for the device, and so does the GT pose when it is
+    committed (`update_transform_gt`); to the CPU they are copied;
     tensors are taken as they are. The intrinsics tensor is shared
     (`CameraIntrinsics.on_device`)."""
 
@@ -81,18 +82,11 @@ class Frame:
         self.sparse_tracking = False  # the tracker's seed came from the sparse frontend
         self._w2c = None
         self._gt_w2c_dev = None
-        def to(x, dtype=None):
-            if not isinstance(x, np.ndarray):
-                return torch.as_tensor(x, device=self.device)
-            if self.device.type == "cuda":
-                return upload(x, self.device, dtype)
-            return torch.as_tensor(x if dtype is None else x.astype(dtype), device=self.device)
-
         with trace.span("frame"):
             self.intr = intr.on_device(self.device)
             # uint16 depth widened to int32: exact; CUDA has few uint16 operations
             widen = np.int32 if isinstance(depth_raw, np.ndarray) and depth_raw.dtype == np.uint16 else None
-            x = (to(color_u8), to(depth_raw, widen), to(mask), self.intr)
+            x = (self._to(color_u8), self._to(depth_raw, widen), self._to(mask), self.intr)
             static = dict(depth_scale=float(depth_scale), nlevel=nlevel, bilateral=bilateral,
                           prefiltered=prefiltered, filter_depth=filter_depth)
             if programs is None:
@@ -101,10 +95,23 @@ class Frame:
                 out = programs.program("frame", _frame_program)(static, None, x)
         self.color, self.depth, self.mask, self.pyramid = out
 
+    def _to(self, x, dtype=None) -> torch.Tensor:
+        """A host array on the frame's device (cast to the numpy `dtype`, if
+        given): to CUDA through `upload`'s pinned staging, to the CPU as a
+        copy; a tensor as it is."""
+        if not isinstance(x, np.ndarray):
+            return torch.as_tensor(x, device=self.device)
+        if self.device.type == "cuda":
+            return upload(x, self.device, dtype)
+        return torch.as_tensor(x if dtype is None else x.astype(dtype), device=self.device)
+
     def update_transform_gt(self) -> None:
-        """Commit the GT pose as the estimate (frame 0 / only_mapping)."""
+        """Commit the GT pose as the estimate (frame 0 / only_mapping): on
+        CUDA through the frame's staged upload, so the host does not wait
+        for the device (under `System.only_mapping` every frame commits
+        one)."""
         if self._gt_w2c_dev is None:
-            self._gt_w2c_dev = torch.as_tensor(self.gt_w2c, device=self.device)
+            self._gt_w2c_dev = self._to(self.gt_w2c)
         self._w2c = self._gt_w2c_dev
 
     def update_transform_matrix(self, w2c: torch.Tensor) -> None:

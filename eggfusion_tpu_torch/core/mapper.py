@@ -30,8 +30,10 @@ outside the programs and passed in.
 
 Device scalars the host needs (fusion stats, losses, pose deltas, map
 counts) are copied asynchronously and read `count_lag` frames later, as in
-the JAX module. The surfel map is updated in place where the JAX code
-donates it.
+the JAX module. So are the tile renderer's binning counters (`RENDER_COUNTS`,
+`take_render_counts`), which the programs write as device buffers and the
+frame sums on the device. The surfel map is updated in place where the JAX
+code donates it.
 
 `mapping` runs its phases under the spans "map_update" (the rung, the
 update program and its lagged reads), "maintain" (prune, compaction) and
@@ -94,6 +96,11 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 # what `Mapping.mapping` returns on a settled fuse-only frame
 # (Mapping.settled_skip): the system keeps the previous tracking model view
 KEEP_MODEL_MAP = "__keep_model_map__"
+
+# the tile renderer's binning counters of a frame (`take_render_counts`),
+# each the renders' `bin_stats` (`ops/raster_tile.py::_bin_entries`): the
+# map update's model render, and with `_opt` the window optimization's steps
+RENDER_COUNTS = ("binned_entries", "tail_entries", "max_run")
 
 
 def _adam_init(params: dict) -> dict:
@@ -451,6 +458,10 @@ class Mapping:
         self._known_time = -1
         self._count_pending: deque = deque()  # (time, HostReadback of count)
         self._shrink_cooldown = 0
+        # the shrink's hysteresis (`_consider_shrink`), and the rung and the
+        # need of the last shrink
+        self._shrink_margin = self._spawn_margin
+        self._last_shrink = None
         self.count_lag = max(1, int(cfg.System.get("count_lag", 2)))
         self._opt_acc = 0.0
         self._opt_cache_map: dict = {}
@@ -464,6 +475,13 @@ class Mapping:
         self._maint_pending = None
         self._stats_pending: deque = deque()
         self.fusion_stats: dict[int, tuple[int, int]] = {}
+        # binning counters: the tile backend's renders bin; the update
+        # render's come in the fusion stats, the opt steps' are summed on the
+        # device into `_opt_bins` (3,) while `mapping` runs, and both are
+        # read with the fusion stats `count_lag` frames later
+        self._count_renders = self.renderer.backend == "pallas"
+        self._opt_bins = None
+        self._render_counts: list = []  # the counters read, not yet taken
         self._adaptive_cap = self.renderer.adaptive_model_cap
         self.model_cap = self.renderer.raster_cap if self._adaptive_cap else 0
         self._occ_streak = 0
@@ -510,8 +528,10 @@ class Mapping:
         full-res). `do_render=False` is the settled fuse-only frame: no
         render, no spawn. `time` is the frame time (an int or an int32
         device scalar); `spawn_u` the frame's spawn uniforms, drawn here
-        when None. Returns (s, model_map or None, stats_vec (3,) int32
-        [fused, error, occupancy or -1] or None)."""
+        when None. Returns (s, model_map or None, stats_vec (6,) int32
+        [fused, error, occupancy or -1, the model render's `bin_stats` (0 0 0
+        with no render, -1 -1 -1 with a backend that does not bin)] or
+        None)."""
         from eggfusion_tpu_torch.system import postprocess_model_map
 
         mcfg, scfg, sys_cfg = self.mcfg, self.scfg, self._system_cfg
@@ -528,13 +548,18 @@ class Mapping:
             if not do_render:
                 s = sf.update_stability(s, mcfg.stable_confidence)
                 no_occ = torch.full((), -1, dtype=torch.int32, device=self.device)
-                return s, None, torch.stack([stats.fused_pixels, stats.error_pixels, no_occ])
+                return s, None, torch.cat([torch.stack([stats.fused_pixels, stats.error_pixels, no_occ]),
+                                           torch.zeros(3, dtype=torch.int32, device=self.device)])
             model = self.renderer.render_at(
                 sf.render_params(s), w2c, intr / down if down > 1 else intr, width // down, height // down,
                 geom_only=not full_post, need_grad=False, cap=model_cap or None,
-                with_occupancy=self._adaptive_cap)
+                with_occupancy=self._adaptive_cap, with_stats=True)
             occ = model.pop("max_occupancy", torch.full((), -1, dtype=torch.int32, device=self.device))
-            stats_vec = torch.stack([stats.fused_pixels, stats.error_pixels, occ.to(torch.int32)])
+            bins = model.pop("bin_stats", None)
+            if bins is None:
+                bins = torch.full((3,), -1, dtype=torch.int32, device=self.device)
+            stats_vec = torch.cat([torch.stack([stats.fused_pixels, stats.error_pixels, occ.to(torch.int32)]),
+                                   bins])
             depth_d = depth[::down, ::down] if down > 1 else depth
             opacity_mask = model["opacity"] < mcfg.add_opacity_thres
             depth_err = model["depth"] - depth_d
@@ -610,7 +635,7 @@ class Mapping:
         are updated in place; returns (s, moments, step + 1, loss)."""
         tile_u = self._tile_draw(width, height)
         return self._opt_step_body(s, moments, step, kf, w2c, intr, geo_snapshot, lrs, width, height,
-                                   cache, tile_u)
+                                   cache, tile_u)[:4]
 
     def _tile_draw(self, width: int, height: int):
         """The next step's tile-subset uniforms (None without a subset); the
@@ -622,7 +647,9 @@ class Mapping:
         return u
 
     def _opt_step_body(self, s, moments, step, kf, w2c, intr, geo_snapshot, lrs, width, height, cache, tile_u):
-        """`opt_step` given the tile-subset uniforms `tile_u`."""
+        """`opt_step` given the tile-subset uniforms `tile_u`; returns also
+        the render's `bin_stats` (-1 -1 -1 with a backend that does not
+        bin)."""
         params = {k: getattr(s, k).detach().requires_grad_(True) for k in OPT_FIELDS}
         tile_keep = pix_mask = None
         if tile_u is not None:
@@ -632,7 +659,10 @@ class Mapping:
             s2 = s.replace(**params)
             out = self.renderer.render_at(sf.render_params(s2), w2c, intr, width, height,
                                           cache=cache, tile_keep=tile_keep,
-                                          cap=self.renderer.opt_raster_cap)
+                                          cap=self.renderer.opt_raster_cap, with_stats=True)
+            bins = out.pop("bin_stats", None)
+            if bins is None:
+                bins = torch.full((3,), -1, dtype=torch.int32, device=self.device)
             loss = compute_loss(out, kf, s2, geo_snapshot, self.mcfg, pix_mask)
             grads = dict(zip(OPT_FIELDS, torch.autograd.grad(loss, [params[k] for k in OPT_FIELDS])))
         with torch.no_grad():
@@ -640,7 +670,7 @@ class Mapping:
                                                moments, step, lrs)
             for k in OPT_FIELDS:
                 getattr(s, k).copy_(new_params[k])
-        return s, moments, step + 1, loss.detach()
+        return s, moments, step + 1, loss.detach(), bins
 
     def render_model(self, s: sf.SurfelMap, w2c, intr, width: int, height: int) -> dict:
         """A full forward render of the map (no gradient) at the renderer's
@@ -668,14 +698,15 @@ class Mapping:
 
     def _opt_step_program(self, st, x, *, width, height, lrs):
         s, moments, step = st
-        _, new_moments, _, loss = self._opt_step_body(s, moments, step, x["kf"], x["w2c"], x["intr"], x["geo"],
-                                                      dict(lrs), width, height, x["cache"], x["tile_u"])
+        _, new_moments, _, loss, bins = self._opt_step_body(s, moments, step, x["kf"], x["w2c"], x["intr"],
+                                                            x["geo"], dict(lrs), width, height, x["cache"],
+                                                            x["tile_u"])
         with torch.no_grad():
             for k in OPT_FIELDS:
                 for buf, new in zip(moments[k], new_moments[k]):
                     buf.copy_(new)
             step.add_(1)
-        return loss
+        return loss, bins
 
     def _bin_cache_program(self, s, x, *, width, height):
         return self.bin_cache(s, x["w2c"], x["intr"], width, height)
@@ -742,12 +773,17 @@ class Mapping:
 
     def _opt(self, schedule: str, kf, kfm: dict, geo: dict, lrs: dict, cache):
         """One `opt_step` on keyframe `kf` through its program, on the Adam
-        state of `schedule`; returns the loss (the program's)."""
+        state of `schedule`; returns the loss (the program's). A step that
+        bins for itself (no `cache`) adds its binning's counters to the
+        frame's."""
         moments, step = self._adam_buffers(schedule)
         x = {"kf": kfm, "w2c": kf.w2c, "intr": kf.intr, "geo": geo, "cache": cache,
              "tile_u": self._tile_draw(kf.width, kf.height)}
         static = {"width": kf.width, "height": kf.height, "lrs": tuple(sorted(lrs.items()))}
-        return self._p_opt(static, (self.surfels, moments, step), x, rung=self.surfels.capacity)
+        loss, bins = self._p_opt(static, (self.surfels, moments, step), x, rung=self.surfels.capacity)
+        if cache is None:
+            self._note_opt_renders(bins, 1)
+        return loss
 
     def capture_rung(self, frame_map: dict, w2c, intr, width: int, height: int, s=None,
                      first: bool = False) -> None:
@@ -855,6 +891,12 @@ class Mapping:
         self._consume_counts()
         need = self._cap_needed()
         if need > self.surfels.capacity:
+            if self._last_shrink is not None:
+                # the map outgrew the rung it shrank to: widen the margin to
+                # what would have kept it on its rung at that need
+                rung, need_then = self._last_shrink
+                self._shrink_margin = max(self._shrink_margin, rung - need_then + 1)
+                self._last_shrink = None
             self._move_to_rung(self._bucket(need))
             self._invalidate_capacity_state()
         else:
@@ -888,10 +930,16 @@ class Mapping:
         self._adam_bufs = {k: v for k, v in self._adam_bufs.items() if k[1] != capacity}
 
     def _consider_shrink(self, need: int) -> None:
-        """Shrink to the rung that holds `need` plus one more margin of
-        hysteresis, when the watermark fits it (one host read: a rare
-        event); otherwise wait `prune_freq` frames for a compaction."""
-        rung = self._bucket(need + self._spawn_margin)
+        """Shrink to the rung that holds `need` plus a margin of hysteresis,
+        when the watermark fits it (one host read: a rare event); otherwise
+        wait `prune_freq` frames for a compaction. The margin starts at one
+        spawn margin, as the JAX module's. When the map outgrows the rung it
+        shrank to, the margin widens to what would have kept it on its rung
+        at that shrink's need, so a map that keeps growing between
+        compactions leaves a rung once and comes back once, not at every
+        compaction (each change captures the new rung's programs); it
+        shrinks again only below that need."""
+        rung = self._bucket(need + self._shrink_margin)
         if rung >= self.surfels.capacity or self.time < self._shrink_cooldown:
             return
         with trace.waiting("readback"):
@@ -902,6 +950,7 @@ class Mapping:
             self._known_count = wm
             self._known_time = self.time
             self._count_pending.clear()
+            self._last_shrink = (rung, need)
         else:
             self._shrink_cooldown = self.time + max(self.mcfg.prune_freq, 1)
 
@@ -952,6 +1001,8 @@ class Mapping:
         first = self.time == 0
         amortized = self.mcfg.opt_schedule == "amortized"
         opt_frame = self.time % self.mcfg.sw_optimize_freq == 0
+        if self._count_renders:
+            self._opt_bins = torch.zeros(3, dtype=torch.int32, device=self.device)
         with trace.span("map_update"):
             if self.bucketing:
                 self._ensure_capacity()
@@ -979,12 +1030,14 @@ class Mapping:
                 self.render_skips += 1
                 self.skip_frames.append(self.time)
                 model_map = KEEP_MODEL_MAP
-            if stats_vec is not None:
-                self._stats_pending.append((self.time, HostReadback(stats_vec)))
             while self._stats_pending and self._stats_pending[0][0] <= self.time - self.count_lag:
                 t, ref = self._stats_pending.popleft()
                 v = ref.numpy()
-                self.fusion_stats[t] = (int(v[0]), int(v[1]))
+                if int(v[0]) >= 0:
+                    self.fusion_stats[t] = (int(v[0]), int(v[1]))
+                if self._count_renders:
+                    self._render_counts.append({"render_frame": t, **dict(zip(RENDER_COUNTS, map(int, v[3:6]))),
+                                                **{k + "_opt": int(n) for k, n in zip(RENDER_COUNTS, v[6:9])}})
                 if int(v[2]) >= 0:
                     self._observe_occupancy(int(v[2]))
             if self.bucketing or self.settled_skip:
@@ -1013,8 +1066,41 @@ class Mapping:
                     self.frame_batch_optimization(frame)
             else:
                 self._amortized_opt()
+        if self._count_renders:
+            # frame 0 fuses and renders nothing: no fusion stats, no counters
+            upd = stats_vec
+            if upd is None:
+                upd = torch.full((6,), -1, dtype=torch.int32, device=self.device)
+                upd[3:] = 0
+            stats_vec, self._opt_bins = torch.cat([upd, self._opt_bins]), None
+        if stats_vec is not None:
+            self._stats_pending.append((self.time, HostReadback(stats_vec)))
         self.time += 1
         return model_map
+
+    def _note_opt_renders(self, bin_stats: torch.Tensor, steps: int) -> None:
+        """Add `steps` optimization renders that used a binning whose
+        counters are `bin_stats` to the frame's (inside `mapping` only):
+        entries and tail entries summed, `max_run` the longest."""
+        acc = self._opt_bins
+        if acc is not None:
+            acc[:2] += steps * bin_stats[:2]
+            torch.maximum(acc[2:], bin_stats[2:], out=acc[2:])
+
+    def take_render_counts(self) -> dict:
+        """The binning counters read since the last call, summed over their
+        frames (`max_run`, `max_run_opt`: the longest), with `render_frames`
+        the number of frames, the newest `render_frame`; {} when none was
+        read."""
+        recs, self._render_counts = self._render_counts, []
+        if not recs:
+            return {}
+        out = {"render_frames": len(recs), "render_frame": recs[-1]["render_frame"]}
+        for k in RENDER_COUNTS + tuple(k + "_opt" for k in RENDER_COUNTS):
+            vals = [r[k] for r in recs if k in r]
+            if vals:
+                out[k] = max(vals) if k.startswith("max_run") else sum(vals)
+        return out
 
     def _observe_occupancy(self, occ: int) -> None:
         """Adaptive model-render cap: drop to model_cap_min after a streak
@@ -1066,6 +1152,7 @@ class Mapping:
         self._loss_pending.clear()
         self._count_pending.clear()
         self._maint_pending = None
+        self._last_shrink = None
         self._invalidate_capacity_state()
         self._leave_rung()
         self._known_count = count
@@ -1171,6 +1258,8 @@ class Mapping:
             loss = self._opt("window", kf, kfm, self._opt_geo, self.sw_lrs, cache)
             if self.debug_nan and not np.isfinite(float(loss)):
                 raise FloatingPointError(f"NaN/Inf map-optimization loss at keyframe uid={kf.uid}")
+        if cache is not None:
+            self._note_opt_renders(cache.stats, n)
         self._note_opt(n, loss)
 
     def _note_opt(self, n: int, loss) -> None:
@@ -1192,6 +1281,8 @@ class Mapping:
             if self.debug_nan:
                 _check_nan_maps(kfm, kf.uid)
             cache = self._binning(kf) if n > 1 else None
+            if cache is not None:
+                self._note_opt_renders(cache.stats, n)
             for _ in range(n):
                 loss = self._opt("batch", kf, kfm, geo_snapshot, lrs, cache)
                 self.opt_steps_total += 1

@@ -44,16 +44,18 @@ class Renderer:
 
     def render_at(self, params: dict, w2c, intr, width: int, height: int, cache=None,
                   geom_only: bool = False, need_grad: bool = True, tile_keep=None,
-                  cap: int | None = None, with_occupancy: bool = False) -> dict:
+                  cap: int | None = None, with_occupancy: bool = False, with_stats: bool = False) -> dict:
         """See the JAX method: `geom_only` returns {depth, opacity};
-        `need_grad=False` skips the gradient back-map; `tile_keep` and
-        `with_occupancy` apply to the tile backend."""
+        `need_grad=False` skips the gradient back-map; `tile_keep`,
+        `with_occupancy` and `with_stats` (the binning's counters,
+        "bin_stats") apply to the tile backend."""
         if self.backend == "pallas":
             return raster_tile.render_tile(params, w2c, intr, width, height,
                                            sh_degree=self.active_sh_degree,
                                            cap=cap or self.raster_cap, binning=cache,
                                            geom_only=geom_only, need_grad=need_grad,
-                                           tile_keep=tile_keep, with_occupancy=with_occupancy)
+                                           tile_keep=tile_keep, with_occupancy=with_occupancy,
+                                           with_stats=with_stats)
         out = render_xla(params, w2c, intr, width, height, sh_degree=self.active_sh_degree)
         if geom_only:
             out = {"depth": out["depth"], "opacity": out["opacity"]}

@@ -91,14 +91,17 @@ def n_tiles_static(width: int, height: int) -> int:
 
 
 def _bin_entries(depth, mean2d, radius, valid, n_tiles, tx_tiles, ty_tiles, cap,
-                 need_back: bool = True):
+                 need_back: bool = True, stats: bool = False):
     """Fixed-window sub-column binning via one fused (subtile, depth) key.
 
     Keys are int64 with the JAX module's uint32 bit layout; the sort is
     stable, so equal keys keep candidate order. Returns (entry_sid (T, CAP)
     int64 original surfel per slab row, counts (T, N_SUB) int32, back_map
     (N, K) int64 flat slab row of each candidate or -1 — None when
-    `need_back` is False —, max_run () int32 true deepest run)."""
+    `need_back` is False —, max_run () int32 true deepest run), and with
+    `stats` also the binning's `bin_stats` (3,) int32: [entries binned into
+    sub-columns, entries past the exact 3/4 of their sub-column (those the
+    stratified tail thins), max_run]."""
     dev = mean2d.device
     n = mean2d.shape[-1]
     capsub = cap // N_SUB
@@ -151,6 +154,9 @@ def _bin_entries(depth, mean2d, radius, valid, n_tiles, tx_tiles, ty_tiles, cap,
                        + (kept_tail + TAIL_STRIDE - 1) // TAIL_STRIDE, max=capsub)
     counts = kept.reshape(n_tiles, N_SUB).to(torch.int32)
     max_run = torch.max(run).to(torch.int32)
+    extra = ()
+    if stats:
+        extra = (torch.stack([run.sum(), kept_tail.sum(), max_run.to(torch.int64)]).to(torch.int32),)
 
     off = torch.arange(capsub, dtype=torch.int64, device=dev)
     off = torch.where(off < near, off, near + (off - near) * TAIL_STRIDE)
@@ -158,7 +164,7 @@ def _bin_entries(depth, mean2d, radius, valid, n_tiles, tx_tiles, ty_tiles, cap,
     entry_sid = sorted_sid[torch.clamp(pos.reshape(n_tiles, cap), 0, nk - 1)]
 
     if not need_back:
-        return entry_sid, counts, None, max_run
+        return (entry_sid, counts, None, max_run) + extra
 
     iota = torch.arange(nk, dtype=torch.int64, device=dev)
     is_start = torch.ones_like(sorted_sub, dtype=torch.bool)
@@ -178,7 +184,7 @@ def _bin_entries(depth, mean2d, radius, valid, n_tiles, tx_tiles, ty_tiles, cap,
     back_flat = torch.empty_like(flat_sorted)
     back_flat[sorted_j] = flat_sorted
     back_map = back_flat.reshape(n, K)
-    return entry_sid, counts, back_map, max_run
+    return (entry_sid, counts, back_map, max_run) + extra
 
 
 class _ExpandEntries(torch.autograd.Function):
@@ -207,6 +213,7 @@ class Binning(NamedTuple):
     entry_sid: torch.Tensor  # (T, CAP) int64, rows interleave sub-columns
     counts: torch.Tensor  # (T, N_SUB) int32 per-sub-column slot counts
     back_map: torch.Tensor  # (N, K) int64
+    stats: torch.Tensor  # (3,) int32 `bin_stats` (`_bin_entries`)
 
 
 # Frustum compaction of forward-only renders (the JAX module's
@@ -259,11 +266,11 @@ def compute_binning(params: dict, w2c, intr, width: int, height: int, cap: int =
     """Standalone tile binning for `render_tile(..., binning=...)`."""
     _hp, _wp, tx_tiles, ty_tiles = _grid(width, height)
     proj = rc.project_surfels(params, w2c, intr, width, height, sh_degree=0, need_color=False)
-    entry_sid, counts, back_map, _ = _bin_entries(
+    entry_sid, counts, back_map, _, stats = _bin_entries(
         proj.depth, proj.mean2d, proj.radius, proj.valid,
-        tx_tiles * ty_tiles, tx_tiles, ty_tiles, cap,
+        tx_tiles * ty_tiles, tx_tiles, ty_tiles, cap, stats=True,
     )
-    return Binning(entry_sid, counts, back_map)
+    return Binning(entry_sid, counts, back_map, stats)
 
 
 # --------------------------------------------------------------------------
@@ -605,7 +612,8 @@ class _Composite(torch.autograd.Function):
 def render_tile(params: dict, w2c: torch.Tensor, intr: torch.Tensor, width: int, height: int,
                 sh_degree: int = 3, cap: int = 512, binning: Binning | None = None,
                 geom_only: bool = False, need_grad: bool = True,
-                tile_keep: torch.Tensor | None = None, with_occupancy: bool = False) -> dict:
+                tile_keep: torch.Tensor | None = None, with_occupancy: bool = False,
+                with_stats: bool = False) -> dict:
     """Render surfels to (H, W, *) color/normal/depth/opacity maps (the JAX
     module's `render_pallas`, same options and output dict).
 
@@ -614,7 +622,9 @@ def render_tile(params: dict, w2c: torch.Tensor, intr: torch.Tensor, width: int,
     skips building the gradient back-map (and, from FRUSTUM_COMPACT_MIN
     slots up without a binning, renders the `frustum_compact` prefix); `tile_keep` ((n_tiles,) bool)
     composites only the kept tiles; `with_occupancy` adds "max_occupancy",
-    the true deepest sub-column candidate count."""
+    the true deepest sub-column candidate count; `with_stats` adds
+    "bin_stats", the `bin_stats` of the binning the render used (its own or
+    `binning`'s), counted over every tile whatever `tile_keep` drops."""
     assert cap % (N_SUB * _chunk_for(cap)) == 0, (
         f"cap must be a multiple of {N_SUB * _chunk_for(cap)} (sub-column slot chunks)")
     hp, wp, tx_tiles, ty_tiles = _grid(width, height)
@@ -625,10 +635,10 @@ def render_tile(params: dict, w2c: torch.Tensor, intr: torch.Tensor, width: int,
 
     proj = rc.project_surfels(params, w2c, intr, width, height, sh_degree, need_color=not geom_only)
 
-    max_run = None
+    max_run = bin_stats = None
     n = proj.mean2d.shape[-1]
     if binning is not None:
-        entry_sid, counts, back_map = binning
+        entry_sid, counts, back_map, bin_stats = binning
         # a binning indexes the slots of the map it was computed on: one
         # kept across a change of capacity would gather the wrong surfels
         slots = n if back_map is None else back_map.shape[0]
@@ -636,10 +646,11 @@ def render_tile(params: dict, w2c: torch.Tensor, intr: torch.Tensor, width: int,
             raise ValueError(f"stale binning: computed for {slots} slots over {counts.shape[0]} tiles, "
                              f"rendering {n} slots over {n_tiles} tiles")
     else:
-        entry_sid, counts, back_map, max_run = _bin_entries(
+        entry_sid, counts, back_map, max_run, *bin_stats = _bin_entries(
             proj.depth.detach(), proj.mean2d.detach(), proj.radius.detach(), proj.valid,
-            n_tiles, tx_tiles, ty_tiles, cap, need_back=need_grad and not geom_only,
+            n_tiles, tx_tiles, ty_tiles, cap, need_back=need_grad and not geom_only, stats=with_stats,
         )
+        bin_stats = bin_stats[0] if with_stats else None
 
     attrs = torch.cat(
         [proj.mean2d, proj.conic, proj.opacity[None], proj.color, proj.normal_cam, proj.p_cam,
@@ -668,6 +679,8 @@ def render_tile(params: dict, w2c: torch.Tensor, intr: torch.Tensor, width: int,
         out = {"depth": (dep / wsum)[..., None], "opacity": opa[..., None]}
         if with_occupancy:
             out["max_occupancy"] = max_run
+        if with_stats:
+            out["bin_stats"] = bin_stats
         return out
 
     rgb, nrm, dep, opa, _T = _Composite.apply(entries, counts, intr32, tx_tiles, cap)
@@ -682,4 +695,6 @@ def render_tile(params: dict, w2c: torch.Tensor, intr: torch.Tensor, width: int,
     out = {"color": rgb, "normal": nrm, "depth": dep[..., None], "opacity": opa[..., None]}
     if with_occupancy:
         out["max_occupancy"] = max_run
+    if with_stats:
+        out["bin_stats"] = bin_stats
     return out

@@ -356,7 +356,12 @@ class EGGFusion:
         (`map_ms`) and the model view (`post_ms`); of those and of the frame's
         preparation before it, host ms blocked on reads of the device
         (`readback_ms`), making program entries (`capture_ms`) and on the
-        staging buffers of the frame's upload (`upload_ms`)."""
+        staging buffers of the frame's upload (`upload_ms`). On the tile
+        backend the record also carries the renders' binning counters of the
+        frames read since the last record, `count_lag` frames late
+        (`Mapping.take_render_counts`: `binned_entries`, `tail_entries`,
+        `max_run` of the map update's render, the same with `_opt` of the
+        optimization steps, `render_frames` frames up to `render_frame`)."""
         t0 = _time.perf_counter()
         if self.model_map is not None and self.tracker.needs_recovery():
             self._recover_tracking(frame)
@@ -390,6 +395,7 @@ class EGGFusion:
             "capacity": self.mapper.surfels.capacity,
             "opt_steps": self.mapper.opt_steps_total,
             **trace.take_waits(),
+            **self.mapper.take_render_counts(),
         }
         if self.mapper.settled_skip:
             rec["render_skips"] = self.mapper.render_skips

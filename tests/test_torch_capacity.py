@@ -167,6 +167,48 @@ def test_host_decisions_match_jax():
     assert trace[-1] < trace[-2]  # shrink-on-compact
 
 
+
+def test_shrink_margin_widens_when_the_map_regrows():
+    """A map that grows between compactions (every `prune_freq` = 30
+    frames): each compaction lets the JAX ladder shrink a rung, and the
+    next spawns grow it back. The port makes the same decisions through
+    the first regrowth; having outgrown the smaller rung, it widens its
+    shrink margin to what would have kept it on its rung at that shrink's
+    need, and keeps its rung through the later compactions."""
+    mj, mt = _mappers(_cfg(jcfg, 120_000), _cfg(tcfg, 120_000))
+    caps = []
+    t = 0
+
+    def run(counts):
+        nonlocal t
+        for c in counts:
+            _frame(mj, mt, t, c)
+            caps.append((mj.surfels.capacity, mt.surfels.capacity))
+            t += 1
+
+    run([1200, 20000, 45000, 60000] + [70000] * 26)
+    for _cycle in range(3):
+        for mp in (mj, mt):
+            mp.time = t
+        mj._maintain_decide(70000, 40000, t - 1, immediate=False)
+        mt._maintain_decide(70000, 40000, t - 1, immediate=False)
+        _set_watermark(mj, mt, 40000)  # what the compaction left
+        run([40000] * 3 + [52000] * 3 + [70000] * 24)
+    jax_caps, port_caps = zip(*caps)
+    assert jax_caps[:60] == port_caps[:60]
+    assert mt._shrink_margin == 49152 - (40000 + mt._spawn_margin) + 1
+    for k in (30, 60, 90):  # JAX: shrink after each compaction, regrow within 6 frames
+        assert jax_caps[k] == 49152 and jax_caps[k + 5] == 73728 == jax_caps[k - 1]
+    assert set(port_caps[35:]) == {73728}
+    # a map that does fall below that need shrinks in both
+    for mp in (mj, mt):
+        mp.time = t
+    mj._maintain_decide(70000, 10000, t - 1, immediate=False)
+    mt._maintain_decide(70000, 10000, t - 1, immediate=False)
+    _set_watermark(mj, mt, 10000)
+    run([10000] * 3)
+    assert caps[-1] == (32768, 32768)
+
 def test_default_config_follows_jax():
     """Under `default_config()` (capacity bucketing on, JAX's default) the
     port's map starts on the JAX package's rung and grows with it; a map
