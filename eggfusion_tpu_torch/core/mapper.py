@@ -28,6 +28,16 @@ keyed by the members' shapes, and the reduction with Adam on the first
 device, captured when a member joins the window (`_prepare_window_step`). The spawn and tile-subset draws are made
 outside the programs and passed in.
 
+The window optimization's steps and binnings (`opt_step`, `bin_cache`) run
+on the map's first `opt_slots` slots, the work rung: the smallest ladder
+rung that holds every slot the map can have filled by the frame's steps
+(`_work_rung`, `_update_opt_slots`). Slots past the watermark are inactive
+with zero Adam moments, so a step leaves them as they are; the prefix skips
+them. It engages where the allocation is held above what the count needs
+(`System.min_capacity`); on a capacity the ladder chose from the count it
+is the whole map. Its programs carry the rung tag `opt_slots`; a tag below
+the floor rung `System.min_capacity` sets is a work rung's alone.
+
 Device scalars the host needs (fusion stats, losses, pose deltas, map
 counts) are copied asynchronously and read `count_lag` frames later, as in
 the JAX module. So are the tile renderer's binning counters (`RENDER_COUNTS`,
@@ -183,6 +193,24 @@ def _check_nan_maps(kfm: dict, uid) -> None:
     for k, frac in _finite_fractions(kfm).items():
         if float(frac) < 1.0:
             raise FloatingPointError(f"non-finite values in keyframe uid={uid} map '{k}'")
+
+
+def _work_state(s: sf.SurfelMap, moments: dict, geo: dict, n: int):
+    """The map, the Adam moments and the geometry snapshot as views of their
+    leading `n` slots (themselves when that is every slot): a write through
+    them writes the whole."""
+    if n >= s.capacity:
+        return s, moments, geo
+    return (sf.prefix(s, n), {k: (m[..., :n], v[..., :n]) for k, (m, v) in moments.items()},
+            {k: g[..., :n] for k, g in geo.items()})
+
+
+def _pad_binning(b: rt.Binning, n: int) -> rt.Binning:
+    """Binning `b` of a map's leading slots as the binning of its first `n`
+    (at least as many): the back-map padded with rows of -1, slots with no
+    entries, as every slot past the watermark."""
+    bm = b.back_map
+    return b._replace(back_map=torch.cat([bm, bm.new_full((n - bm.shape[0], bm.shape[1]), -1)]))
 
 
 def _geo_snapshot(s: sf.SurfelMap) -> dict:
@@ -463,6 +491,14 @@ class Mapping:
         self._shrink_margin = self._spawn_margin
         self._last_shrink = None
         self.count_lag = max(1, int(cfg.System.get("count_lag", 2)))
+        # the work rung (`_work_rung`): the count readbacks it bounds the
+        # watermark from, which maintenance does not clear (a count before a
+        # compaction still bounds the one after), and the freshest (count,
+        # frame) consumed; `frame_opt_slots` the slots of the frame's steps,
+        # None with no step
+        self._slot_counts: deque = deque()
+        self._slots_known = (0, -1)
+        self.frame_opt_slots = None
         self._opt_acc = 0.0
         self._opt_cache_map: dict = {}
         self.opt_steps_total = 0
@@ -515,6 +551,7 @@ class Mapping:
         self._adam_bufs: dict = {}  # (schedule, capacity) -> (moments, step)
         self._rung_maps: dict = {}  # capacity -> empty SurfelMap
         self.capture_hooks: list = []  # hook(s, frame_map, w2c, intr, width, height)
+        self.opt_slots = self._work_rung()
 
     # ---------------------------------------------------------- programs --
 
@@ -744,11 +781,18 @@ class Mapping:
         return self._p_render({"width": width, "height": height}, self.surfels, {"w2c": w2c, "intr": intr},
                               rung=self.surfels.capacity)
 
+    def _work(self, s: sf.SurfelMap) -> int:
+        """The slots, and the rung tag, of the window optimization's
+        programs on map `s`: the work rung on the current map, every slot on
+        a map allocated ahead (`precompile_ladder`)."""
+        return min(self.opt_slots, s.capacity) if s is self.surfels else s.capacity
+
     def _binning(self, kf):
-        """`bin_cache` of the current map from keyframe `kf` through its
-        program (the program's outputs)."""
-        return self._p_bin({"width": kf.width, "height": kf.height}, self.surfels,
-                           {"w2c": kf.w2c, "intr": kf.intr}, rung=self.surfels.capacity)
+        """`bin_cache` of the current map's work rung from keyframe `kf`
+        through its program (the program's outputs)."""
+        n = self._work(self.surfels)
+        return self._p_bin({"width": kf.width, "height": kf.height}, sf.prefix(self.surfels, n),
+                           {"w2c": kf.w2c, "intr": kf.intr}, rung=n)
 
     def _adam_buffers(self, schedule: str, s=None):
         """The persistent Adam state (moments, step) of `schedule` ("window":
@@ -773,14 +817,17 @@ class Mapping:
 
     def _opt(self, schedule: str, kf, kfm: dict, geo: dict, lrs: dict, cache):
         """One `opt_step` on keyframe `kf` through its program, on the Adam
-        state of `schedule`; returns the loss (the program's). A step that
-        bins for itself (no `cache`) adds its binning's counters to the
-        frame's."""
+        state of `schedule` and the work rung's slots of the map, the
+        moments and the geometry snapshot `geo`; returns the loss (the
+        program's). A step that bins for itself (no `cache`) adds its
+        binning's counters to the frame's."""
         moments, step = self._adam_buffers(schedule)
+        n = self._work(self.surfels)
+        s, moments, geo = _work_state(self.surfels, moments, geo, n)
         x = {"kf": kfm, "w2c": kf.w2c, "intr": kf.intr, "geo": geo, "cache": cache,
              "tile_u": self._tile_draw(kf.width, kf.height)}
         static = {"width": kf.width, "height": kf.height, "lrs": tuple(sorted(lrs.items()))}
-        loss, bins = self._p_opt(static, (self.surfels, moments, step), x, rung=self.surfels.capacity)
+        loss, bins = self._p_opt(static, (s, moments, step), x, rung=n)
         if cache is None:
             self._note_opt_renders(bins, 1)
         return loss
@@ -791,7 +838,8 @@ class Mapping:
         `s` (default: the current map), from a frame's maps and pose: the
         map update of each variant the configuration can take (each model
         cap, the settled fuse-only frame, the burst schedule's geometry-only
-        frame), the binning, the opt step of the schedule, the model render
+        frame), the binning and the opt step of the schedule on the work
+        rung and on each rung above it below the capacity, the model render
         and the hooks' programs; with `first`, frame 0's map update and
         optimization too. Nothing runs on `s`."""
         if not self.programs.enabled:
@@ -822,19 +870,29 @@ class Mapping:
         # under a mesh the window step's programs are captured as members
         # join the window (`_prepare_window_step`): their keys follow them
         if self.devices is None:
-            cache = self._p_bin(view, s, {"w2c": w2c, "intr": intr}, rung=rung)
             kfm = {"color": frame_map["color_map"], "depth": frame_map["depth_map"],
                    "normal": frame_map["normal_map_c"], "rgb_mask": frame_map["rgb_mask"],
                    "geo_mask": frame_map["geo_mask"]}
             u = (torch.zeros(rt.n_tiles_static(width, height), device=self.device)
                  if self.use_tile_subset else None)
-            x = {"kf": kfm, "w2c": w2c, "intr": intr, "geo": _geo_snapshot(s), "cache": cache, "tile_u": u}
             static = {**view, "lrs": tuple(sorted(self.sw_lrs.items()))}
+            geo = _geo_snapshot(s)
             # in a fixed order: a set's would follow the process's string hash
             # seed, and so would the order of the captures and their memory
-            for schedule in dict.fromkeys(["window" if amortized else "batch"] + (["batch"] if first else [])):
-                moments, step = self._adam_buffers(schedule, s)
-                self._p_opt.prepare(static, (s, moments, step), x, rung=rung)
+            schedules = ["window" if amortized else "batch"]
+            now = list(dict.fromkeys(schedules + (["batch"] if first else [])))
+            # the work rung and each rung above it below the capacity, as the
+            # frame loop runs them: a capture on a map grown with the run's
+            # keyframes and binnings would add its transient (a clone of the
+            # state, the step's intermediates) to the device's peak
+            n0 = self._work(s)
+            for n in [n0] + [r for r in self._ladder if n0 < r < s.capacity]:
+                cache = self._p_bin(view, sf.prefix(s, n), {"w2c": w2c, "intr": intr}, rung=n)
+                for schedule in now if n == n0 else schedules:
+                    moments, step = self._adam_buffers(schedule, s)
+                    sw, moments, gw = _work_state(s, moments, geo, n)
+                    x = {"kf": kfm, "w2c": w2c, "intr": intr, "geo": gw, "cache": cache, "tile_u": u}
+                    self._p_opt.prepare(static, (sw, moments, step), x, rung=n)
         for hook in self.capture_hooks:
             hook(s, frame_map, w2c, intr, width, height)
         self._captured_rungs.add(rung)
@@ -857,14 +915,55 @@ class Mapping:
 
     # -------------------------------------------------------------- host --
 
+    def _rung(self, needed: int) -> int:
+        """The smallest rung >= `needed` (the maximum past it)."""
+        return next((c for c in self._ladder if c >= needed), self.max_capacity)
+
     def _bucket(self, needed: int) -> int:
         """The smallest rung >= `needed`, at least `System.min_capacity`,
         at most the maximum."""
-        needed = min(max(needed, self._min_capacity), self.max_capacity)
-        for c in self._ladder:
-            if c >= needed:
-                return c
-        return self.max_capacity
+        return self._rung(min(max(needed, self._min_capacity), self.max_capacity))
+
+    def _work_rung(self, margin: int = 0) -> int:
+        """The smallest rung that holds the watermark bound plus `margin`,
+        at most the capacity: the freshest consumed count plus what the map
+        updates since can append (frame 0 up to `spawn_cap_init`, every
+        other frame `spawn_cap`), so the device's count at this frame's
+        steps lies below it. The whole map unless its capacity is the floor
+        `System.min_capacity` holds it on (one the ladder chose from the
+        count is the rung the count needs), and under a mesh."""
+        cap = self.surfels.capacity
+        if self.devices is not None or not self.bucketing or cap > self._bucket(0):
+            return cap
+        count, t = self._slots_known
+        need = count + (self.time - t) * self.mcfg.spawn_cap
+        if t < 0:
+            need += self.mcfg.spawn_cap_init - self.mcfg.spawn_cap
+        return min(self._rung(need + margin), cap)
+
+    def _update_opt_slots(self) -> None:
+        """Move the work rung `opt_slots` for this frame's optimization
+        steps: up as soon as the watermark bound passes it, down, as the
+        map shrinks, only when the bound plus the shrink's hysteresis margin
+        fits a lower rung. A move drops the previous rung's `opt_step` and
+        `bin_cache` entries; a move up pads the cached binnings, a move down
+        drops them (one binned at the rung above since a compaction indexes
+        slots past the new rung)."""
+        while self._slot_counts and self._slot_counts[0][0] <= self.time - self.count_lag:
+            t, ref = self._slot_counts.popleft()
+            self._slots_known = (int(ref.numpy()), t)
+        cap = self.surfels.capacity
+        old = min(self.opt_slots, cap)
+        new = self._work_rung()
+        if new < old:
+            new = min(old, self._work_rung(self._shrink_margin))
+        self.opt_slots = new
+        if new == old:
+            return
+        for p in (self._p_opt, self._p_bin):
+            p.drop(old)
+        self._opt_cache_map = ({uid: None if b is None else _pad_binning(b, new)
+                                for uid, b in self._opt_cache_map.items()} if new > old else {})
 
     def _consume_counts(self) -> None:
         """Fold in the count readbacks at least `count_lag` frames old."""
@@ -905,7 +1004,8 @@ class Mapping:
     def _move_to_rung(self, capacity: int) -> None:
         """Grow or shrink the map to `capacity` (into the buffers
         `precompile_ladder` allocated for it, if any) and drop the programs
-        and Adam buffers of the rung it leaves."""
+        and Adam buffers of the rung it leaves; the work rung is set anew
+        for the new capacity (`_work_rung`)."""
         old = self.surfels
         if capacity == old.capacity:
             return
@@ -917,15 +1017,21 @@ class Mapping:
                 self.surfels = sf.grow_surfels(old, capacity)
             else:
                 self.surfels = sf.shrink_surfels(old, capacity)
+        self.opt_slots = self._work_rung()
         self._leave_rung(old.capacity)
 
     def _leave_rung(self, capacity=None) -> None:
         """Forget the programs and Adam buffers of rung `capacity` (of every
-        rung, and the maps allocated ahead, with None)."""
+        rung, and the maps allocated ahead, with None), with its work
+        rungs' (`_work`: tags below the floor rung are theirs alone)."""
         self.programs.drop(capacity)
         if capacity is None:
             self._captured_rungs, self._adam_bufs, self._rung_maps = set(), {}, {}
             return
+        for r in self._ladder:
+            if r < self._bucket(0):
+                self._p_opt.drop(r)
+                self._p_bin.drop(r)
         self._captured_rungs.discard(capacity)
         self._adam_bufs = {k: v for k, v in self._adam_bufs.items() if k[1] != capacity}
 
@@ -1001,11 +1107,13 @@ class Mapping:
         first = self.time == 0
         amortized = self.mcfg.opt_schedule == "amortized"
         opt_frame = self.time % self.mcfg.sw_optimize_freq == 0
+        steps0 = self.opt_steps_total
         if self._count_renders:
             self._opt_bins = torch.zeros(3, dtype=torch.int32, device=self.device)
         with trace.span("map_update"):
             if self.bucketing:
                 self._ensure_capacity()
+                self._update_opt_slots()
             elif self.settled_skip:
                 self._consume_counts()  # the settledness signal without the ladder
             if self.programs.enabled and self.surfels.capacity not in self._captured_rungs:
@@ -1041,7 +1149,10 @@ class Mapping:
                 if int(v[2]) >= 0:
                     self._observe_occupancy(int(v[2]))
             if self.bucketing or self.settled_skip:
-                self._count_pending.append((self.time, HostReadback(self.surfels.count)))
+                count = HostReadback(self.surfels.count)
+                self._count_pending.append((self.time, count))
+                if self.bucketing:
+                    self._slot_counts.append((self.time, count))
 
         with trace.span("maintain"):
             if self._maint_pending is not None:
@@ -1075,6 +1186,7 @@ class Mapping:
             stats_vec, self._opt_bins = torch.cat([upd, self._opt_bins]), None
         if stats_vec is not None:
             self._stats_pending.append((self.time, HostReadback(stats_vec)))
+        self.frame_opt_slots = self.opt_slots if self.opt_steps_total > steps0 else None
         self.time += 1
         return model_map
 
@@ -1151,12 +1263,15 @@ class Mapping:
         self._stats_pending.clear()
         self._loss_pending.clear()
         self._count_pending.clear()
+        self._slot_counts.clear()
         self._maint_pending = None
         self._last_shrink = None
         self._invalidate_capacity_state()
         self._leave_rung()
         self._known_count = count
         self._known_time = self.time - 1
+        self._slots_known = (count, self.time - 1)
+        self.opt_slots = self._work_rung()
 
     def _maintain_decide(self, count: int, n_active: int, known_time: int, immediate: bool = True) -> None:
         """Compact when fragmentation exceeds `compact_frag` of capacity;

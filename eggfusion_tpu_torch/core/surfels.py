@@ -242,6 +242,14 @@ def shrink_surfels(s: SurfelMap, new_capacity: int) -> SurfelMap:
     return SurfelMap(**out, count=s.count)
 
 
+def prefix(s: SurfelMap, n: int) -> SurfelMap:
+    """Views of the leading `n` slots of `s` (the watermark the same tensor):
+    a write through them writes `s`. `s` itself when it has no more."""
+    if n >= s.capacity:
+        return s
+    return SurfelMap(**{f: getattr(s, f)[..., :n] for f in FIELDS if f != "count"}, count=s.count)
+
+
 def assign(dst: SurfelMap, src: SurfelMap) -> SurfelMap:
     """Write every field of `src` into `dst`'s buffer of the same shape
     (fields that are the same tensor are skipped); returns `dst`."""

@@ -361,7 +361,9 @@ class EGGFusion:
         frames read since the last record, `count_lag` frames late
         (`Mapping.take_render_counts`: `binned_entries`, `tail_entries`,
         `max_run` of the map update's render, the same with `_opt` of the
-        optimization steps, `render_frames` frames up to `render_frame`)."""
+        optimization steps, `render_frames` frames up to `render_frame`).
+        A frame whose window optimization ran steps records the slots they
+        ran on (`opt_slots`, `Mapping.opt_slots`)."""
         t0 = _time.perf_counter()
         if self.model_map is not None and self.tracker.needs_recovery():
             self._recover_tracking(frame)
@@ -397,6 +399,8 @@ class EGGFusion:
             **trace.take_waits(),
             **self.mapper.take_render_counts(),
         }
+        if self.mapper.frame_opt_slots is not None:
+            rec["opt_slots"] = self.mapper.frame_opt_slots
         if self.mapper.settled_skip:
             rec["render_skips"] = self.mapper.render_skips
         fs = self.mapper.fusion_stats
