@@ -1359,8 +1359,8 @@ def ladder_capture(torch) -> dict:
         for rung, b in st["pool_bytes"].items():
             pools[rung] = pools.get(rung, 0) + b
     maps = {str(c): sum(t.numel() * t.element_size() for t in vars(m).values())
-            for c, m in ef.mapper._rung_maps.items()}
-    out = {"start_capacity": ef.mapper.surfels.capacity, "rungs_ahead": sorted(ef.mapper._rung_maps),
+            for c, m in ef.mapper.maps_ahead.items()}
+    out = {"start_capacity": ef.mapper.surfels.capacity, "rungs_ahead": sorted(ef.mapper.maps_ahead),
            "warmup_s": seconds, "captures": ef.programs.captures(), "pool_bytes_by_rung": pools,
            "empty_map_bytes_by_rung": maps, "allocated_bytes": torch.cuda.memory_allocated() - base,
            "reserved_bytes": torch.cuda.memory_reserved() - base_reserved}
@@ -1708,7 +1708,7 @@ def check_tum(cfglib, torch, n_frames: int = 60, n_compare: int = 20) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     out = {"phase": "tum", "frames": len(frames), "size": [ds.intrinsics.width, ds.intrinsics.height],
            "distorted": ds.distorted, "mask_valid_share": float(ds.mask.mean()),
-           "max_surfels_num": ef.mapper.max_capacity, "capacities": caps,
+           "max_surfels_num": ef.mapper.ladder.max_capacity, "capacities": caps,
            "capacity_changes": [(m["frame"], m["capacity"]) for a, m in zip(frames, frames[1:])
                                 if m["capacity"] != a["capacity"]],
            "sparse_seeds": ef.tracker.sparse_seeds, "sparse_seed_share": ef.tracker.sparse_seeds / len(frames),
@@ -1742,7 +1742,7 @@ def check_tum(cfglib, torch, n_frames: int = 60, n_compare: int = 20) -> dict:
     if not (render["psnr"] > 12.0 and render["depth_l1"] < 0.15 and recon.get("recon_f1", 0.0) > 0.7):
         fail(f"tum: keyframe PSNR {render['psnr']}, depth-L1 {render['depth_l1']}, recon F1 {recon.get('recon_f1')}")
     grew = any(b > a for a, b in zip(caps, caps[1:]))
-    if not (out["capacity_changes"] and grew and caps[-1] < ef.mapper.max_capacity):
+    if not (out["capacity_changes"] and grew and caps[-1] < ef.mapper.ladder.max_capacity):
         fail(f"tum: the map never grew, or ended at its maximum: {out['capacity_changes']}")
     for k in ("composite_fwd", "composite_bwd"):
         if launches[k] <= 0:

@@ -6,44 +6,29 @@ sliding-window map optimization (port of `eggfusion_tpu/core/mapper.py`).
 per-frame `map_update` (with the model view at 1/`Tracking.model_view_down`
 and the settled fuse-only frame of `Mapping.settled_skip`), `opt_step`,
 spawn sampling, the binning cache, `mapping`, the adaptive model cap, map
-maintenance (prune + compact), the capacity ladder
-(`System.capacity_bucketing`), the amortized and burst optimization
-schedules, the window-batched step across devices (`System.mesh_devices`,
-`parallel.mesh`), the global keyframe optimization of `finish` and the
-full model render of the evaluations.
+maintenance (prune + compact), the map's moves between the rungs that
+`self.ladder` (`core/capacity.py`) decides, the amortized and burst
+optimization schedules, the window-batched step across devices
+(`System.mesh_devices`, `parallel.mesh`), the global keyframe optimization
+of `finish` and the full model render of the evaluations.
 
-The capacity ladder makes the same decisions as the JAX module's, from the
-same lagged count readbacks. The JAX module's programs (`map_update`,
-`opt_step`, `bin_cache`, `render_model`, map maintenance's `prune` and
-`compact`) run through the system's program cache (`utils.graphs`): on
-CUDA one captured graph per key and rung, the map and the Adam moments
-their state, updated in place in one set of buffers per rung. A rung's
-programs are captured when the map first stands on it (`capture_rung`, the
-JAX module's bucket compile, done inline: a capture takes milliseconds), or
-ahead of it by `precompile_ladder`; leaving a rung drops its graphs and
-pools. Maintenance's count readbacks and its compaction decision stay on
-the host, `count_lag` frames late. Under a mesh the window-batched step
-runs as `parallel.mesh`'s programs: one per device holding window members,
-keyed by the members' shapes, and the reduction with Adam on the first
-device, captured when a member joins the window (`_prepare_window_step`). The spawn and tile-subset draws are made
+The JAX module's programs (`map_update`, `opt_step`, `bin_cache`,
+`render_model`, map maintenance's `prune` and `compact`) run through the
+system's program cache (`utils.graphs`): on CUDA one captured graph per key
+and rung tag, the map and the Adam moments their state, updated in place in
+one set of buffers per rung. A rung's programs are captured when the map
+first stands on it (`capture_rung`, the JAX module's bucket compile), or
+ahead of it by `precompile_ladder`; leaving a rung drops its programs and
+those of its work rungs. Under a mesh the window-batched step runs as
+`parallel.mesh`'s programs: one per device holding window members, and the
+reduction with Adam on the first device, captured when a member joins the
+window (`_prepare_window_step`). The spawn and tile-subset draws are made
 outside the programs and passed in.
 
-The window optimization's steps and binnings (`opt_step`, `bin_cache`) run
-on the map's first `opt_slots` slots, the work rung: the smallest ladder
-rung that holds every slot the map can have filled by the frame's steps
-(`_work_rung`, `_update_opt_slots`). Slots past the watermark are inactive
-with zero Adam moments, so a step leaves them as they are; the prefix skips
-them. It engages where the allocation is held above what the count needs
-(`System.min_capacity`); on a capacity the ladder chose from the count it
-is the whole map. Its programs carry the rung tag `opt_slots`; a tag below
-the floor rung `System.min_capacity` sets is a work rung's alone.
-
-Device scalars the host needs (fusion stats, losses, pose deltas, map
-counts) are copied asynchronously and read `count_lag` frames later, as in
-the JAX module. So are the tile renderer's binning counters (`RENDER_COUNTS`,
-`take_render_counts`), which the programs write as device buffers and the
-frame sums on the device. The surfel map is updated in place where the JAX
-code donates it.
+Device scalars the host needs (fusion stats and the tile renderer's binning
+counters, losses, pose deltas, map counts) are read `count_lag` frames late
+(`utils.device.Lagged`), as in the JAX module. The map is updated in place
+where the JAX code donates it.
 
 `mapping` runs its phases under the spans "map_update" (the rung, the
 update program and its lagged reads), "maintain" (prune, compaction) and
@@ -61,10 +46,11 @@ import numpy as np
 import torch
 
 from eggfusion_tpu_torch.core import surfels as sf
+from eggfusion_tpu_torch.core.capacity import CapacityLadder
 from eggfusion_tpu_torch.ops import fusion
 from eggfusion_tpu_torch.ops import raster_tile as rt
 from eggfusion_tpu_torch.utils import trace
-from eggfusion_tpu_torch.utils.device import HostReadback
+from eggfusion_tpu_torch.utils.device import HostReadback, Lagged
 from eggfusion_tpu_torch.utils.graphs import Programs
 
 
@@ -304,28 +290,25 @@ class KeyFrameManager:
         self.sliding_window: deque = deque(maxlen=self.window_size)
         self.storage = str(cfg.System.get("keyframe_storage", "device"))
         self.check_lag = max(1, int(cfg.Tracking.get("keyframe_check_lag", 2)))
-        self._kf_gen = 0
-        self._pending_mag: deque = deque(maxlen=16)  # (time, gen, HostReadback)
+        self._pending_mag: deque = deque(maxlen=16)  # (time, HostReadback)
 
     def observe(self, frame, time: int) -> None:
         if not self.keyframes:
             return
         prev = self.keyframes[self.ids()[-1]]
         mag = _relative_pose_mag(prev.w2c, frame.w2c_matrix())
-        self._pending_mag.append((time, self._kf_gen, HostReadback(mag)))
+        self._pending_mag.append((time, HostReadback(mag)))
 
     def _accept(self, kf) -> None:
         self.keyframes[kf.uid] = kf
-        self._kf_gen += 1
-        self._pending_mag.clear()
+        self._pending_mag.clear()  # the deltas to the previous keyframe
 
     def check_keyframe(self, frame, frame_map, time: int) -> bool:
         kf = KeyFrame(frame, frame_map, time, len(self.keyframes), self.storage)
         if time == 0 or not self.keyframes:
             self._accept(kf)
             return True
-        ready = [m for (t, g, m) in self._pending_mag
-                 if g == self._kf_gen and t <= time - self.check_lag]
+        ready = [m for t, m in self._pending_mag if t <= time - self.check_lag]
         if ready:
             mag = ready[-1].numpy()
         else:  # no aged observation: synchronous check
@@ -341,21 +324,6 @@ class KeyFrameManager:
 
     def __len__(self):
         return len(self.keyframes)
-
-
-def capacity_ladder(max_capacity: int, factor: float = 1.4, coarse_at: int = 524288,
-                    factor_large: float = 2.0) -> list[int]:
-    """The map's capacity rungs: 32768, then each rung times `factor`
-    (`factor_large` from `coarse_at` on) rounded up to a multiple of 8192,
-    capped by a last rung of `max_capacity`."""
-    ladder = []
-    c = 32768
-    while c < max_capacity:
-        ladder.append(c)
-        f = factor if c < coarse_at else factor_large
-        c = -(-int(c * f) // 8192) * 8192
-    ladder.append(max_capacity)
-    return ladder
 
 
 class Mapping:
@@ -384,9 +352,7 @@ class Mapping:
         self._skip_last = False
         self.render_skips = 0
         self.skip_frames: list[int] = []  # the frame times that skipped
-        self._count_hist: deque = deque(maxlen=3)
         self._prev_w2c_skip = None
-        self._mag_pending: deque = deque()  # (time, HostReadback of (2,) [deg, m])
         self._known_motion = None  # the freshest consumed (deg, m)
         self._known_motion_time = -10
         self.mcfg = MapperConfig(
@@ -468,48 +434,26 @@ class Mapping:
             "nlevel": int(cfg.Tracking.pyramid_level),
             "bilateral": str(cfg.System.get("bilateral_mode", "exact")),
         }
-        # capacity ladder: the map starts at a rung and grows (or shrinks)
-        # to the smallest rung that holds the freshest consumed count plus
-        # `_spawn_margin` of spawn headroom; every per-frame cost is
-        # O(capacity)
-        self.max_capacity = self.scfg.capacity
-        self.bucketing = bool(cfg.System.get("capacity_bucketing", True))
-        self._ladder = capacity_ladder(self.max_capacity, float(cfg.System.get("bucket_factor", 1.4)),
-                                       int(cfg.System.get("bucket_coarse_at", 524288)),
-                                       float(cfg.System.get("bucket_factor_large", 2.0)))
-        self._spawn_margin = self.mcfg.spawn_cap // 8 + 2048
-        self._min_capacity = int(cfg.System.get("min_capacity", 0))
-        init_cap = (self._bucket(self.mcfg.spawn_cap_init + self._spawn_margin)
-                    if self.bucketing else self.max_capacity)
-        self.surfels = sf.SurfelMap.empty(self.scfg._replace(capacity=init_cap), device=self.device)
-        self._known_count = 0  # the map's count after frame `_known_time`
-        self._known_time = -1
-        self._count_pending: deque = deque()  # (time, HostReadback of count)
-        self._shrink_cooldown = 0
-        # the shrink's hysteresis (`_consider_shrink`), and the rung and the
-        # need of the last shrink
-        self._shrink_margin = self._spawn_margin
-        self._last_shrink = None
-        self.count_lag = max(1, int(cfg.System.get("count_lag", 2)))
-        # the work rung (`_work_rung`): the count readbacks it bounds the
-        # watermark from, which maintenance does not clear (a count before a
-        # compaction still bounds the one after), and the freshest (count,
-        # frame) consumed; `frame_opt_slots` the slots of the frame's steps,
-        # None with no step
-        self._slot_counts: deque = deque()
-        self._slots_known = (0, -1)
+        # the map's slots (every per-frame cost is O(capacity)); the slots of
+        # the frame's optimization steps, None with no step
+        self.ladder = CapacityLadder.from_config(cfg, self.mcfg.spawn_cap, self.mcfg.spawn_cap_init,
+                                                 prefix=self.devices is None)
+        self.surfels = sf.SurfelMap.empty(self.scfg._replace(capacity=self.ladder.start()), device=self.device)
         self.frame_opt_slots = None
+        self._count_hist: deque = deque(maxlen=3)  # the last counts the ladder read (settled skip)
+        # read `count_lag` frames late: fusion stats and binning counters,
+        # losses, pose deltas; maintenance's two counts one frame later still
+        self.count_lag = self.ladder.counts.lag
+        self._stats, self._losses, self._motion = (Lagged(self.count_lag) for _ in range(3))
+        self._maint = Lagged(self.count_lag + 1)
         self._opt_acc = 0.0
         self._opt_cache_map: dict = {}
         self.opt_steps_total = 0
-        self._loss_pending: deque = deque()
         self.opt_losses: dict[int, float] = {}
         self._opt_geo = None
         self._opt_moments = None
         self._opt_stepno = None
         self._host_step = 0  # host mirror of the Adam step counter (tile draws)
-        self._maint_pending = None
-        self._stats_pending: deque = deque()
         self.fusion_stats: dict[int, tuple[int, int]] = {}
         # binning counters: the tile backend's renders bin; the update
         # render's come in the fusion stats, the opt steps' are summed on the
@@ -534,7 +478,7 @@ class Mapping:
         self.use_tile_subset = (self.mcfg.opt_tile_fraction < 1.0 and self.renderer.backend == "pallas")
         # the program cache: the per-frame programs, the rungs whose programs
         # are captured, the Adam buffers of each (schedule, rung) and the maps
-        # `precompile_ladder` allocated ahead for the rungs above
+        # `precompile_ladder` allocated ahead for the rungs above (`maps_ahead`)
         self.programs = programs or Programs(self.device, graphs=False)
         self._p_update = self.programs.program("map_update", self._map_update_program)
         self._p_opt = self.programs.program("opt_step", self._opt_step_program)
@@ -549,9 +493,8 @@ class Mapping:
                 renderer.render_at, self.mcfg, self.devices, opt_cap=renderer.opt_raster_cap, programs=self.programs)
         self._captured_rungs: set = set()
         self._adam_bufs: dict = {}  # (schedule, capacity) -> (moments, step)
-        self._rung_maps: dict = {}  # capacity -> empty SurfelMap
+        self.maps_ahead: dict = {}  # capacity -> empty SurfelMap
         self.capture_hooks: list = []  # hook(s, frame_map, w2c, intr, width, height)
-        self.opt_slots = self._work_rung()
 
     # ---------------------------------------------------------- programs --
 
@@ -781,16 +724,10 @@ class Mapping:
         return self._p_render({"width": width, "height": height}, self.surfels, {"w2c": w2c, "intr": intr},
                               rung=self.surfels.capacity)
 
-    def _work(self, s: sf.SurfelMap) -> int:
-        """The slots, and the rung tag, of the window optimization's
-        programs on map `s`: the work rung on the current map, every slot on
-        a map allocated ahead (`precompile_ladder`)."""
-        return min(self.opt_slots, s.capacity) if s is self.surfels else s.capacity
-
     def _binning(self, kf):
         """`bin_cache` of the current map's work rung from keyframe `kf`
         through its program (the program's outputs)."""
-        n = self._work(self.surfels)
+        n = self.ladder.opt_slots
         return self._p_bin({"width": kf.width, "height": kf.height}, sf.prefix(self.surfels, n),
                            {"w2c": kf.w2c, "intr": kf.intr}, rung=n)
 
@@ -822,7 +759,7 @@ class Mapping:
         program's). A step that bins for itself (no `cache`) adds its
         binning's counters to the frame's."""
         moments, step = self._adam_buffers(schedule)
-        n = self._work(self.surfels)
+        n = self.ladder.opt_slots
         s, moments, geo = _work_state(self.surfels, moments, geo, n)
         x = {"kf": kfm, "w2c": kf.w2c, "intr": kf.intr, "geo": geo, "cache": cache,
              "tile_u": self._tile_draw(kf.width, kf.height)}
@@ -881,12 +818,12 @@ class Mapping:
             # seed, and so would the order of the captures and their memory
             schedules = ["window" if amortized else "batch"]
             now = list(dict.fromkeys(schedules + (["batch"] if first else [])))
-            # the work rung and each rung above it below the capacity, as the
-            # frame loop runs them: a capture on a map grown with the run's
-            # keyframes and binnings would add its transient (a clone of the
-            # state, the step's intermediates) to the device's peak
-            n0 = self._work(s)
-            for n in [n0] + [r for r in self._ladder if n0 < r < s.capacity]:
+            # the work rung and each work rung above it, as the frame loop runs
+            # them: a capture on a map grown with the run's keyframes and
+            # binnings would add its transient (a clone of the state, the
+            # step's intermediates) to the device's peak
+            n0 = self.ladder.opt_slots if s is self.surfels else rung
+            for n in [n0] + [r for r in self.ladder.work_tags(rung) if r > n0]:
                 cache = self._p_bin(view, sf.prefix(s, n), {"w2c": w2c, "intr": intr}, rung=n)
                 for schedule in now if n == n0 else schedules:
                     moments, step = self._adam_buffers(schedule, s)
@@ -903,162 +840,67 @@ class Mapping:
         by default as in the JAX package): growing onto such a rung moves
         the map into those buffers and captures nothing. Returns the number
         of rungs."""
-        if not (self.programs.enabled and self.bucketing):
+        if not (self.programs.enabled and self.ladder.bucketing):
             return 0
         n = 0
-        for cap in self._ladder:
-            if cap > self.surfels.capacity and cap not in self._rung_maps:
-                m = self._rung_maps[cap] = sf.SurfelMap.empty(self.scfg._replace(capacity=cap), device=self.device)
+        for cap in self.ladder.rungs:
+            if cap > self.surfels.capacity and cap not in self.maps_ahead:
+                m = self.maps_ahead[cap] = sf.SurfelMap.empty(self.scfg._replace(capacity=cap), device=self.device)
                 self.capture_rung(frame_map, w2c, intr, width, height, s=m)
                 n += 1
         return n
 
     # -------------------------------------------------------------- host --
 
-    def _rung(self, needed: int) -> int:
-        """The smallest rung >= `needed` (the maximum past it)."""
-        return next((c for c in self._ladder if c >= needed), self.max_capacity)
+    def fit_capacity(self) -> None:
+        """Move the map to the frame's capacity (`CapacityLadder.plan`); a
+        work-rung move drops the programs of the rung it leaves and pads the
+        cached binnings (up) or drops them (down: they index slots past it)."""
+        plan = self.ladder.plan(self.time, self.surfels.capacity, self._watermark)
+        self._count_hist.extend(plan.read)
+        if plan.invalidate:
+            self._move_to_rung(plan.capacity)
+        new, old = plan.opt_slots, plan.work_from
+        if new != old:
+            for p in (self._p_opt, self._p_bin):
+                p.drop(old)
+            self._opt_cache_map = ({uid: None if b is None else _pad_binning(b, new)
+                                    for uid, b in self._opt_cache_map.items()} if new > old else {})
 
-    def _bucket(self, needed: int) -> int:
-        """The smallest rung >= `needed`, at least `System.min_capacity`,
-        at most the maximum."""
-        return self._rung(min(max(needed, self._min_capacity), self.max_capacity))
-
-    def _work_rung(self, margin: int = 0) -> int:
-        """The smallest rung that holds the watermark bound plus `margin`,
-        at most the capacity: the freshest consumed count plus what the map
-        updates since can append (frame 0 up to `spawn_cap_init`, every
-        other frame `spawn_cap`), so the device's count at this frame's
-        steps lies below it. The whole map unless its capacity is the floor
-        `System.min_capacity` holds it on (one the ladder chose from the
-        count is the rung the count needs), and under a mesh."""
-        cap = self.surfels.capacity
-        if self.devices is not None or not self.bucketing or cap > self._bucket(0):
-            return cap
-        count, t = self._slots_known
-        need = count + (self.time - t) * self.mcfg.spawn_cap
-        if t < 0:
-            need += self.mcfg.spawn_cap_init - self.mcfg.spawn_cap
-        return min(self._rung(need + margin), cap)
-
-    def _update_opt_slots(self) -> None:
-        """Move the work rung `opt_slots` for this frame's optimization
-        steps: up as soon as the watermark bound passes it, down, as the
-        map shrinks, only when the bound plus the shrink's hysteresis margin
-        fits a lower rung. A move drops the previous rung's `opt_step` and
-        `bin_cache` entries; a move up pads the cached binnings, a move down
-        drops them (one binned at the rung above since a compaction indexes
-        slots past the new rung)."""
-        while self._slot_counts and self._slot_counts[0][0] <= self.time - self.count_lag:
-            t, ref = self._slot_counts.popleft()
-            self._slots_known = (int(ref.numpy()), t)
-        cap = self.surfels.capacity
-        old = min(self.opt_slots, cap)
-        new = self._work_rung()
-        if new < old:
-            new = min(old, self._work_rung(self._shrink_margin))
-        self.opt_slots = new
-        if new == old:
-            return
-        for p in (self._p_opt, self._p_bin):
-            p.drop(old)
-        self._opt_cache_map = ({uid: None if b is None else _pad_binning(b, new)
-                                for uid, b in self._opt_cache_map.items()} if new > old else {})
-
-    def _consume_counts(self) -> None:
-        """Fold in the count readbacks at least `count_lag` frames old."""
-        while self._count_pending and self._count_pending[0][0] <= self.time - self.count_lag:
-            t, ref = self._count_pending.popleft()
-            self._known_count = int(ref.numpy())
-            self._known_time = t
-            self._count_hist.append(self._known_count)
-
-    def _cap_needed(self) -> int:
-        """The freshest consumed count plus the spawn headroom (plus frame
-        0's init burst while no count has been consumed)."""
-        need = self._known_count + self._spawn_margin
-        if self._known_time < 0:
-            need += self.mcfg.spawn_cap_init
-        return need
-
-    def _ensure_capacity(self) -> None:
-        """Grow the map to the rung it could need before this frame's
-        spawns, or shrink it a rung when it sits that far below. As in the
-        JAX module, the capacity state is invalidated whenever the need
-        exceeds the capacity, even at the maximum, where the map stays as
-        it is and spawns beyond it are dropped."""
-        self._consume_counts()
-        need = self._cap_needed()
-        if need > self.surfels.capacity:
-            if self._last_shrink is not None:
-                # the map outgrew the rung it shrank to: widen the margin to
-                # what would have kept it on its rung at that need
-                rung, need_then = self._last_shrink
-                self._shrink_margin = max(self._shrink_margin, rung - need_then + 1)
-                self._last_shrink = None
-            self._move_to_rung(self._bucket(need))
-            self._invalidate_capacity_state()
-        else:
-            self._consider_shrink(need)
+    def _watermark(self) -> int:
+        with trace.waiting("readback"):
+            return int(self.surfels.count)
 
     def _move_to_rung(self, capacity: int) -> None:
         """Grow or shrink the map to `capacity` (into the buffers
-        `precompile_ladder` allocated for it, if any) and drop the programs
-        and Adam buffers of the rung it leaves; the work rung is set anew
-        for the new capacity (`_work_rung`)."""
+        `precompile_ladder` allocated for it, if any), drop the programs and
+        Adam buffers of the rung it leaves, and the state of the old slots
+        (also when the map stays, at the maximum)."""
         old = self.surfels
-        if capacity == old.capacity:
-            return
-        dst = self._rung_maps.pop(capacity, None)
-        with torch.no_grad():
-            if dst is not None:
-                self.surfels = sf.resize_into(old, dst)
-            elif capacity > old.capacity:
-                self.surfels = sf.grow_surfels(old, capacity)
-            else:
-                self.surfels = sf.shrink_surfels(old, capacity)
-        self.opt_slots = self._work_rung()
-        self._leave_rung(old.capacity)
+        if capacity != old.capacity:
+            dst = self.maps_ahead.pop(capacity, None)
+            with torch.no_grad():
+                if dst is not None:
+                    self.surfels = sf.resize_into(old, dst)
+                elif capacity > old.capacity:
+                    self.surfels = sf.grow_surfels(old, capacity)
+                else:
+                    self.surfels = sf.shrink_surfels(old, capacity)
+            self._leave_rung(old.capacity)
+        self._invalidate_capacity_state()
 
     def _leave_rung(self, capacity=None) -> None:
-        """Forget the programs and Adam buffers of rung `capacity` (of every
-        rung, and the maps allocated ahead, with None), with its work
-        rungs' (`_work`: tags below the floor rung are theirs alone)."""
+        """Forget the programs and Adam buffers of rung `capacity` and its work
+        rungs' programs; of every rung, and the maps allocated ahead, with None."""
         self.programs.drop(capacity)
         if capacity is None:
-            self._captured_rungs, self._adam_bufs, self._rung_maps = set(), {}, {}
+            self._captured_rungs, self._adam_bufs, self.maps_ahead = set(), {}, {}
             return
-        for r in self._ladder:
-            if r < self._bucket(0):
-                self._p_opt.drop(r)
-                self._p_bin.drop(r)
+        for r in self.ladder.work_tags(capacity):
+            self._p_opt.drop(r)
+            self._p_bin.drop(r)
         self._captured_rungs.discard(capacity)
         self._adam_bufs = {k: v for k, v in self._adam_bufs.items() if k[1] != capacity}
-
-    def _consider_shrink(self, need: int) -> None:
-        """Shrink to the rung that holds `need` plus a margin of hysteresis,
-        when the watermark fits it (one host read: a rare event); otherwise
-        wait `prune_freq` frames for a compaction. The margin starts at one
-        spawn margin, as the JAX module's. When the map outgrows the rung it
-        shrank to, the margin widens to what would have kept it on its rung
-        at that shrink's need, so a map that keeps growing between
-        compactions leaves a rung once and comes back once, not at every
-        compaction (each change captures the new rung's programs); it
-        shrinks again only below that need."""
-        rung = self._bucket(need + self._shrink_margin)
-        if rung >= self.surfels.capacity or self.time < self._shrink_cooldown:
-            return
-        with trace.waiting("readback"):
-            wm = int(self.surfels.count)
-        if wm <= rung:
-            self._move_to_rung(rung)
-            self._invalidate_capacity_state()
-            self._known_count = wm
-            self._known_time = self.time
-            self._count_pending.clear()
-            self._last_shrink = (rung, need)
-        else:
-            self._shrink_cooldown = self.time + max(self.mcfg.prune_freq, 1)
 
     def _invalidate_capacity_state(self) -> None:
         """A capacity change or a compaction moves slots: the cached
@@ -1074,10 +916,10 @@ class Mapping:
         on the frame before. Any doubt renders."""
         if not self.settled_skip or self._skip_last or fail_streak > 0:
             return False
-        h = self._count_hist
-        if len(h) < h.maxlen or self._known_time < self.time - 3 * self.count_lag:
+        h, lad = self._count_hist, self.ladder
+        if len(h) < h.maxlen or lad.known_time < self.time - 3 * self.count_lag:
             return False
-        tol = max(self.settled_skip_tol, int(self.settled_skip_tol_frac * self._known_count))
+        tol = max(self.settled_skip_tol, int(self.settled_skip_tol_frac * lad.known_count))
         if max(h) - min(h) > tol:
             return False
         if self._known_motion is None or self._known_motion_time < self.time - 3 * self.count_lag:
@@ -1090,11 +932,9 @@ class Mapping:
         as an async readback, consumed `count_lag` frames later."""
         w2c_now = frame.w2c_matrix()
         if self._prev_w2c_skip is not None:
-            self._mag_pending.append((self.time, HostReadback(_relative_pose_mag(w2c_now, self._prev_w2c_skip))))
+            self._motion.push(self.time, _relative_pose_mag(w2c_now, self._prev_w2c_skip))
         self._prev_w2c_skip = w2c_now
-        while self._mag_pending and self._mag_pending[0][0] <= self.time - self.count_lag:
-            t, ref = self._mag_pending.popleft()
-            v = ref.numpy()
+        for t, v in self._motion.ready(self.time):
             self._known_motion = (float(v[0]), float(v[1]))
             self._known_motion_time = t
 
@@ -1111,11 +951,7 @@ class Mapping:
         if self._count_renders:
             self._opt_bins = torch.zeros(3, dtype=torch.int32, device=self.device)
         with trace.span("map_update"):
-            if self.bucketing:
-                self._ensure_capacity()
-                self._update_opt_slots()
-            elif self.settled_skip:
-                self._consume_counts()  # the settledness signal without the ladder
+            self.fit_capacity()
             if self.programs.enabled and self.surfels.capacity not in self._captured_rungs:
                 self.capture_rung(frame_map, frame.w2c_matrix(), frame.intr, frame.width, frame.height, first=first)
             if self.settled_skip:
@@ -1138,9 +974,7 @@ class Mapping:
                 self.render_skips += 1
                 self.skip_frames.append(self.time)
                 model_map = KEEP_MODEL_MAP
-            while self._stats_pending and self._stats_pending[0][0] <= self.time - self.count_lag:
-                t, ref = self._stats_pending.popleft()
-                v = ref.numpy()
+            for t, v in self._stats.ready(self.time):
                 if int(v[0]) >= 0:
                     self.fusion_stats[t] = (int(v[0]), int(v[1]))
                 if self._count_renders:
@@ -1148,15 +982,11 @@ class Mapping:
                                                 **{k + "_opt": int(n) for k, n in zip(RENDER_COUNTS, v[6:9])}})
                 if int(v[2]) >= 0:
                     self._observe_occupancy(int(v[2]))
-            if self.bucketing or self.settled_skip:
-                count = HostReadback(self.surfels.count)
-                self._count_pending.append((self.time, count))
-                if self.bucketing:
-                    self._slot_counts.append((self.time, count))
+            if self.ladder.bucketing or self.settled_skip:
+                self.ladder.observe(self.time, self.surfels.count)
 
         with trace.span("maintain"):
-            if self._maint_pending is not None:
-                self._maintain_finish()
+            self._maintain_finish()
             if self.mcfg.prune_freq > 0 and self.time > 0 and self.time % self.mcfg.prune_freq == 0:
                 self.maintain_map(defer=True)
 
@@ -1185,8 +1015,8 @@ class Mapping:
                 upd[3:] = 0
             stats_vec, self._opt_bins = torch.cat([upd, self._opt_bins]), None
         if stats_vec is not None:
-            self._stats_pending.append((self.time, HostReadback(stats_vec)))
-        self.frame_opt_slots = self.opt_slots if self.opt_steps_total > steps0 else None
+            self._stats.push(self.time, stats_vec)
+        self.frame_opt_slots = self.ladder.opt_slots if self.opt_steps_total > steps0 else None
         self.time += 1
         return model_map
 
@@ -1242,56 +1072,39 @@ class Mapping:
             cnt, act = self._p_prune({"max_age": self.mcfg.prune_max_age}, self.surfels, self._time_tensor(),
                                      rung=self.surfels.capacity)
         if defer:
-            self._maint_pending = (self.time, HostReadback(cnt), HostReadback(act))
+            self._maint.clear()  # one decision pending: a later prune's supersedes it
+            self._maint.push(self.time, (cnt, act))
             return
         with trace.waiting("readback"):
             cnt, act = int(cnt), int(act)
         self._maintain_decide(cnt, act, self.time)
 
     def _maintain_finish(self) -> None:
-        t, cnt, act = self._maint_pending
-        if self.time - t <= self.count_lag:
-            return
-        self._maint_pending = None
-        self._maintain_decide(int(cnt.numpy()), int(act.numpy()), t, immediate=False)
+        for t, (cnt, act) in self._maint.ready(self.time):
+            self._maintain_decide(int(cnt), int(act), t, immediate=False)
 
-    def forget_pending(self, count: int) -> None:
-        """Drop every lagged readback and every cache that refers to the
-        slots of the current map: the map was just replaced (resume,
-        reload) by one with `count` slots in use, known as of the frame
-        before `time`."""
-        self._stats_pending.clear()
-        self._loss_pending.clear()
-        self._count_pending.clear()
-        self._slot_counts.clear()
-        self._maint_pending = None
-        self._last_shrink = None
+    def adopt(self, s: sf.SurfelMap, count: int) -> None:
+        """Make `s` the map (resume, reload), `count` slots in use as of the
+        frame before `time`: what refers to the old map's slots is dropped."""
+        self.surfels = s
+        for q in (self._stats, self._losses, self._maint):
+            q.clear()
         self._invalidate_capacity_state()
         self._leave_rung()
-        self._known_count = count
-        self._known_time = self.time - 1
-        self._slots_known = (count, self.time - 1)
-        self.opt_slots = self._work_rung()
+        self.ladder.forget(count, self.time, s.capacity)
 
     def _maintain_decide(self, count: int, n_active: int, known_time: int, immediate: bool = True) -> None:
         """Compact when fragmentation exceeds `compact_frag` of capacity;
-        the counts date from frame `known_time`. `immediate` (a direct
-        `maintain_map` call) also shrinks the map to the rung that holds
-        the count plus two spawn margins; the frame loop leaves that to
-        `_consider_shrink`."""
+        what is left, as of frame `known_time`, is the ladder's count
+        (`CapacityLadder.maintained`, `immediate`: a direct call)."""
         if count - n_active > self.mcfg.compact_frag * self.surfels.capacity:
             with torch.no_grad():
                 self._p_compact({}, self.surfels, None, rung=self.surfels.capacity)
             count = n_active
             self._invalidate_capacity_state()
-        self._known_count = count
-        self._known_time = known_time
-        self._count_pending.clear()
-        if self.bucketing and immediate:
-            rung = self._bucket(count + 2 * self._spawn_margin)
-            if rung < self.surfels.capacity and count <= rung:
-                self._move_to_rung(rung)
-                self._invalidate_capacity_state()
+        cap = self.ladder.maintained(count, known_time, self.time, self.surfels.capacity, immediate)
+        if cap != self.surfels.capacity:
+            self._move_to_rung(cap)
 
     def _window_batch(self, kfs: list):
         """The keyframes as the mesh step's batch: B = the window size
@@ -1379,10 +1192,9 @@ class Mapping:
 
     def _note_opt(self, n: int, loss) -> None:
         self.opt_steps_total += n
-        self._loss_pending.append((self.time, HostReadback(loss)))
-        while self._loss_pending and self._loss_pending[0][0] <= self.time - self.count_lag:
-            t, ref = self._loss_pending.popleft()
-            self.opt_losses[t] = float(ref.numpy())
+        self._losses.push(self.time, loss)
+        for t, v in self._losses.ready(self.time):
+            self.opt_losses[t] = float(v)
 
     def _optimize(self, runs: list, lrs: dict):
         """Adam over a schedule of (keyframe, n_iters) runs; multi-step runs
@@ -1461,9 +1273,3 @@ class Mapping:
         run_len = min(4, iters)
         runs = [(kfs[rng.integers(len(kfs))], run_len) for _ in range(iters // run_len)]
         return self._optimize(runs, self.global_lrs)
-
-    def get_render_output(self, frame) -> dict:
-        """The model rendered at a frame's estimated pose, channel-last."""
-        out = self.render_model(self.surfels, frame.w2c_matrix(), frame.intr, frame.width, frame.height)
-        return {"render_color": out["color"], "render_depth": out["depth"],
-                "render_normal": out["normal"], "render_opacity": out["opacity"]}

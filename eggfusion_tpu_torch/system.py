@@ -363,7 +363,7 @@ class EGGFusion:
         `max_run` of the map update's render, the same with `_opt` of the
         optimization steps, `render_frames` frames up to `render_frame`).
         A frame whose window optimization ran steps records the slots they
-        ran on (`opt_slots`, `Mapping.opt_slots`)."""
+        ran on (`opt_slots`, the work rung of `core/capacity.py`)."""
         t0 = _time.perf_counter()
         if self.model_map is not None and self.tracker.needs_recovery():
             self._recover_tracking(frame)
@@ -484,10 +484,9 @@ class EGGFusion:
         last estimated pose and the tracker takes that pose as its
         history."""
         s, extra = ckpt.load_checkpoint(path, self.device)
-        self.mapper.surfels = s
         if "time" in extra:
             self.mapper.time = int(extra["time"])
-        self.mapper.forget_pending(int(s.count))
+        self.mapper.adopt(s, int(s.count))
         if "ts" in extra:
             self.traj = {
                 "ts": list(np.asarray(extra["ts"])),
@@ -511,7 +510,7 @@ class EGGFusion:
         s = self.mapper.surfels
         n = len(data["xyz"])
         if n > s.capacity:
-            s = self.mapper.surfels = sf.grow_surfels(s, self.mapper._bucket(n))
+            s = sf.grow_surfels(s, self.mapper.ladder.rung_for(n))
         n = min(n, s.capacity)
         fields = ["xyz", "features_dc", "scaling", "rotation", "opacity"]
         if data["features_rest"].shape[1] == s.features_rest.shape[1]:
@@ -521,7 +520,7 @@ class EGGFusion:
             getattr(s, f)[..., :n] = torch.as_tensor(np.ascontiguousarray(data[f][:n].T), device=self.device)
         s.active[:n] = True
         s.count = torch.tensor(n, dtype=torch.int32, device=self.device)
-        self.mapper.forget_pending(n)
+        self.mapper.adopt(s, n)
         print(f"Reloaded {n} surfels from {path}")
 
     # ---- evaluation ---------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Device selection, the GPU's name and power limit, and host readbacks and
-uploads that do not stall the device queue.
+"""Device selection, the GPU's name and power limit, and host readbacks
+(`Lagged` ones too) and uploads that do not stall the device queue.
 
 No JAX counterpart: JAX picks its platform globally and starts async copies
 with `Array.copy_to_host_async`; here both are explicit.
@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import itertools
 import subprocess
+from collections import deque
 
 import numpy as np
 import torch
@@ -75,6 +76,27 @@ class HostReadback:
             if self._event is not None:
                 self._event.synchronize()
             return self._buf.numpy()
+
+
+class Lagged:
+    """Device values the host reads `lag` frames late: `push(time, value)`
+    starts the copy of a tensor (of each of a tuple) made at frame `time`;
+    `ready(now)` yields each `(time, value)` pushed at `now - lag` or
+    earlier once, oldest first, as numpy (a tuple of them)."""
+
+    def __init__(self, lag: int):
+        self.lag, self._q = lag, deque()
+
+    def push(self, time: int, value) -> None:
+        self._q.append((time, tuple(map(HostReadback, value)) if isinstance(value, tuple) else HostReadback(value)))
+
+    def ready(self, now: int):
+        while self._q and self._q[0][0] <= now - self.lag:
+            t, r = self._q.popleft()
+            yield t, tuple(x.numpy() for x in r) if isinstance(r, tuple) else r.numpy()
+
+    def clear(self) -> None:
+        self._q.clear()
 
 
 # `upload`'s page-locked staging buffers, in turn, per device, shape and dtype

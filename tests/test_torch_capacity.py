@@ -21,13 +21,12 @@ from eggfusion_tpu.system import EGGFusion as JEGGFusion
 from eggfusion_tpu_torch import config as tcfg
 from eggfusion_tpu_torch.convert import surfel_map_from_numpy, surfel_map_to_numpy
 from eggfusion_tpu_torch.core import surfels as tsf
-from eggfusion_tpu_torch.core import mapper as tmapper
+from eggfusion_tpu_torch.core.capacity import capacity_ladder
 from eggfusion_tpu_torch.core.mapper import Mapping as TMapping
 from eggfusion_tpu_torch.core.renderer import Renderer as TRenderer
 from eggfusion_tpu_torch.io import ply as t_ply
 from eggfusion_tpu_torch.ops import raster_tile as rt
 from eggfusion_tpu_torch.system import EGGFusion as TEGGFusion
-from eggfusion_tpu_torch.utils.device import HostReadback
 
 # the test workers share the CPU: a small intra-op pool per process keeps
 # them from oversubscribing it
@@ -51,6 +50,10 @@ def _mappers(cfg_j, cfg_t):
 
 
 def _state(mp):
+    """(capacity, consumed count, its frame): the JAX mapper's, the port's
+    ladder's."""
+    if isinstance(mp, TMapping):
+        return mp.surfels.capacity, mp.ladder.known_count, mp.ladder.known_time
     return mp.surfels.capacity, mp._known_count, mp._known_time
 
 
@@ -67,10 +70,10 @@ def _frame(mj, mt, t, count):
     for mp in (mj, mt):
         mp.time = t
     mj._ensure_capacity(first=t == 0)
-    mt._ensure_capacity()
+    mt.fit_capacity()
     _set_watermark(mj, mt, count)
     mj._count_pending.append((t, jnp.int32(int(mj.surfels.count))))
-    mt._count_pending.append((t, HostReadback(mt.surfels.count)))
+    mt.ladder.observe(t, mt.surfels.count)
 
 
 @pytest.mark.parametrize("max_surfels", [6144, 32768, 200_000, 262144, 1_000_000, 3_000_000])
@@ -83,10 +86,10 @@ def test_ladder_rungs(max_surfels):
         expect.append(c)
         c = -(-int(c * (factor if c < coarse_at else 2.0)) // 8192) * 8192
     expect.append(max_surfels)
-    assert tmapper.capacity_ladder(max_surfels) == expect
+    assert capacity_ladder(max_surfels) == expect
     if max_surfels <= 262144:  # small enough to build both mappers
         mj, mt = _mappers(cfg, _cfg(tcfg, max_surfels))
-        assert mt._ladder == mj._ladder == expect
+        assert mt.ladder.rungs == mj._ladder == expect
         assert mt.surfels.capacity == mj.surfels.capacity
 
 
@@ -121,7 +124,7 @@ def test_host_decisions_match_jax():
     compaction, the shrink cooldown when the watermark sits above the
     smaller rung, and shrink-on-compact of a direct `maintain_map`."""
     mj, mt = _mappers(_cfg(jcfg, 120_000), _cfg(tcfg, 120_000))
-    margin = mt._spawn_margin
+    margin = mt.ladder.spawn_margin
     assert margin == mj._spawn_margin and _state(mt) == _state(mj)
     trace = []
 
@@ -150,13 +153,14 @@ def test_host_decisions_match_jax():
     t = t + 10
     for mp in (mj, mt):
         mp.time = t
-        mp._count_pending.clear()
-        mp._known_count, mp._known_time = 1000, t - 1
+    mj._count_pending.clear()
+    mj._known_count, mj._known_time = 1000, t - 1
+    mt.ladder.maintained(1000, t - 1, t, mt.surfels.capacity, immediate=False)
     _set_watermark(mj, mt, 50000)
     mj._ensure_capacity(first=False)
-    mt._ensure_capacity()
+    mt.fit_capacity()
     check("cooldown")
-    assert mt._shrink_cooldown == mj._shrink_cooldown > t
+    assert mt.ladder.cooldown == mj._shrink_cooldown > t
     # shrink-on-compact of a direct call
     mj._maintain_decide(3000, 3000, t)
     mt._maintain_decide(3000, 3000, t)
@@ -196,7 +200,7 @@ def test_shrink_margin_widens_when_the_map_regrows():
         run([40000] * 3 + [52000] * 3 + [70000] * 24)
     jax_caps, port_caps = zip(*caps)
     assert jax_caps[:60] == port_caps[:60]
-    assert mt._shrink_margin == 49152 - (40000 + mt._spawn_margin) + 1
+    assert mt.ladder.shrink_margin == 49152 - (40000 + mt.ladder.spawn_margin) + 1
     for k in (30, 60, 90):  # JAX: shrink after each compaction, regrow within 6 frames
         assert jax_caps[k] == 49152 and jax_caps[k + 5] == 73728 == jax_caps[k - 1]
     assert set(port_caps[35:]) == {73728}
@@ -217,11 +221,11 @@ def test_default_config_follows_jax():
     cfg_j, cfg_t = jcfg.default_config(), tcfg.default_config()
     mj, mt = _mappers(cfg_j, cfg_t)
     assert mt.surfels.capacity == mj.surfels.capacity < int(cfg_t.Viewer.max_surfels_num)
-    assert mj.bucketing and mt.bucketing
+    assert mj.bucketing and mt.ladder.bucketing
     for t, c in enumerate([24000, 30000, 36000, 45000, 60000]):
         _frame(mj, mt, t, c)
         assert _state(mt) == _state(mj), t
-    assert mt.surfels.capacity > mt._ladder[0]
+    assert mt.surfels.capacity > mt.ladder.rungs[0]
 
 
 def test_stale_binning_raises():

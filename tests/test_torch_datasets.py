@@ -438,7 +438,7 @@ def test_tum_poses(runs):
 
 def test_tum_counts_and_capacity(runs):
     ef_j, ef_t, caps_j, caps_t, _ = runs
-    assert ef_t.mapper.bucketing and ef_j.mapper.bucketing
+    assert ef_t.mapper.ladder.bucketing and ef_j.mapper.bucketing
     assert caps_t == caps_j
     assert ef_t.mapper.opt_steps_total == ef_j.mapper.opt_steps_total
 

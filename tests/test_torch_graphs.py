@@ -62,9 +62,8 @@ def _system(cfg, graphs_on):
     """A system on the test's ladder, its map on the rung the ladder gives."""
     ef = EGGFusion(cfg, device="cpu", graphs=graphs_on)
     m = ef.mapper
-    m._ladder = list(LADDER)
-    m.surfels = tsf.SurfelMap.empty(m.scfg._replace(capacity=m._bucket(m.mcfg.spawn_cap_init + m._spawn_margin)),
-                                    device="cpu")
+    m.ladder.rungs = list(LADDER)
+    m.adopt(tsf.SurfelMap.empty(m.scfg._replace(capacity=m.ladder.start()), device="cpu"), 0)
     ef.dataset = load_dataset(cfg, ef.device)
     return ef
 

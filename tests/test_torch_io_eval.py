@@ -149,7 +149,7 @@ def test_resume_other_capacity(systems, tmp_path):
         ef.resume(path)
         s = surfel_map_to_numpy(ef.mapper.surfels)
         assert s["active"].shape == (CAP,) and int(s["count"]) == int(m["count"]) and ef.mapper.time == 3
-        assert (ef.mapper._known_count, ef.mapper._known_time) == (int(m["count"]), 2)
+        assert (ef.mapper.ladder.known_count, ef.mapper.ladder.known_time) == (int(m["count"]), 2)
         _assert_same_fields(s, m)
 
 

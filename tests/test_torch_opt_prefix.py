@@ -1,5 +1,5 @@
-"""The window optimization on the map's leading slots (`Mapping.opt_slots`,
-the work rung) against the same steps on the whole allocation.
+"""The window optimization on the map's leading slots (the work rung,
+`CapacityLadder.opt_slots`) against the same steps on the whole allocation.
 
 A map of 8192 slots held there by `System.min_capacity`, ~1000 surfels in
 front of a 64x48 camera, SH 1, on the tile compositor (its plain kernels on
@@ -29,7 +29,8 @@ compaction, then the empty map's fills.
     frame record carries it (`opt_slots`); without `min_capacity` the work
     rung is the capacity on every frame.
 (f) A deferred maintenance does not move the work rung: its watermark bound
-    comes from count readbacks that maintenance leaves alone.
+    comes from count readbacks whose stream maintenance cuts only for the
+    ladder's count.
 
 The test marked `cuda` replays an opt step captured on a work rung below
 the allocation against an eager call, bit for bit; run it on the card with
@@ -91,22 +92,23 @@ def _fill(s, lo: int, hi: int, rng, active: bool) -> None:
     s.active[lo:hi] = active
 
 
-def _mapper(programs=None):
-    """A mapper on the test's ladder, its map at CAP: active surfels in
-    [0, N_ACTIVE), pruned holes up to the watermark COUNT, leftovers of a
-    compaction (inactive) in [COUNT, 3000), the empty map's fills past it;
-    the round started (geometry snapshot, Adam moments zero)."""
+def _mapper(programs=None, rungs=LADDER):
+    """A mapper on ladder `rungs` (the whole map: [CAP]), its map at CAP:
+    active surfels in [0, N_ACTIVE), pruned holes up to the watermark COUNT,
+    leftovers of a compaction (inactive) in [COUNT, 3000), the empty map's
+    fills past it, the count known as of frame 4 at frame 5; the round
+    started (geometry snapshot, Adam moments zero)."""
     cfg = _cfg()
     m = tmapper.Mapping(cfg, Renderer(cfg, "cpu"), "cpu", programs=programs)
     assert m.surfels.capacity == CAP
-    m._ladder = list(LADDER)
+    m.ladder.rungs = list(rungs)
     rng = np.random.default_rng(7)
     _fill(m.surfels, 0, COUNT, rng, True)
     m.surfels.active[N_ACTIVE:COUNT] = False
     _fill(m.surfels, COUNT, 3000, rng, False)
     m.surfels.count.fill_(COUNT)
-    m.time, m._slots_known = 5, (COUNT, 4)
-    m.opt_slots = m._work_rung()
+    m.time = 5
+    m.adopt(m.surfels, COUNT)
     m._adam_state("window")
     return m
 
@@ -147,8 +149,8 @@ def test_whole_map_step_leaves_the_slots_past_the_watermark():
     regularizer's terms zero (equal to the snapshot, the normal masked),
     zero moments; one whole-map step leaves every field and moment there
     bit for bit."""
-    m = _mapper()
-    m.opt_slots = CAP
+    m = _mapper(rungs=[CAP])
+    assert m.ladder.opt_slots == CAP
     geo = tmapper._geo_snapshot(m.surfels)
     before = _state(m)
     _step(m, geo)
@@ -164,9 +166,8 @@ def test_prefix_step_matches_the_whole_map():
     """(b) Three steps on the work rung (2048 slots) against three on the
     whole map, each binning for itself: equal on the rung's slots to float32
     rounding, the slots past it untouched."""
-    m_full, m_pre = _mapper(), _mapper()
-    m_full.opt_slots = CAP
-    assert m_pre.opt_slots == 2048 < CAP
+    m_full, m_pre = _mapper(rungs=[CAP]), _mapper()
+    assert m_pre.ladder.opt_slots == 2048 < CAP == m_full.ladder.opt_slots
     start = _state(m_pre)
     geo_f, geo_p = tmapper._geo_snapshot(m_full.surfels), tmapper._geo_snapshot(m_pre.surfels)
     for _ in range(3):
@@ -187,10 +188,7 @@ def test_prefix_round_across_a_rung_move():
     the programs' plumbing (static inputs, outputs the program owns)."""
     runs = {}
     for name in ("full", "prefix"):
-        m = _mapper(Programs("cpu", graphs=True))
-        if name == "full":
-            m._ladder = [CAP]
-            m.opt_slots = m._work_rung()
+        m = _mapper(Programs("cpu", graphs=True), [CAP] if name == "full" else LADDER)
         geo = tmapper._geo_snapshot(m.surfels)
         kf, _ = _keyframe()
         m._opt_cache_map[kf.uid] = tmapper.rt.Binning(*(t.clone() for t in m._binning(kf)))
@@ -200,13 +198,13 @@ def test_prefix_round_across_a_rung_move():
         _fill(m.surfels, COUNT, 2300, np.random.default_rng(9), True)
         m.surfels.count.fill_(2300)
         m.time += 1
-        m._slot_counts.append((m.time - m.count_lag, tmapper.HostReadback(m.surfels.count)))
-        m._update_opt_slots()
+        m.ladder.observe(m.time - m.count_lag, m.surfels.count)
+        m.fit_capacity()
         losses += [_step(m, geo, m._opt_cache_map[kf.uid]) for _ in range(2)]
         runs[name] = (m, losses, _state(m))
     m_full, l_full, s_full = runs["full"]
     m_pre, l_pre, s_pre = runs["prefix"]
-    assert m_full.opt_slots == CAP and m_pre.opt_slots == 4096
+    assert m_full.ladder.opt_slots == CAP and m_pre.ladder.opt_slots == 4096
     assert m_pre._opt_cache_map[11].back_map.shape[0] == 4096
     assert {e.rung for e in m_pre._p_opt.entries.values()} == {4096}
     assert {e.rung for e in m_pre._p_bin.entries.values()} == set()
@@ -230,16 +228,13 @@ def test_prefix_round_across_a_compaction_and_a_move_down():
     whole-map run, which kept its binning."""
     runs = {}
     for name in ("full", "prefix"):
-        m = _mapper(Programs("cpu", graphs=True))
-        if name == "full":
-            m._ladder = [CAP]
-            m.opt_slots = m._work_rung()
+        m = _mapper(Programs("cpu", graphs=True), [CAP] if name == "full" else LADDER)
         _fill(m.surfels, COUNT, 4500, np.random.default_rng(9), True)
         m.surfels.count.fill_(4500)
         m.time += 1
-        m._slot_counts.append((m.time - m.count_lag, tmapper.HostReadback(m.surfels.count)))
-        m._update_opt_slots()
-        rungs = [m.opt_slots]
+        m.ladder.observe(m.time - m.count_lag, m.surfels.count)
+        m.fit_capacity()
+        rungs = [m.ladder.opt_slots]
         m.surfels.active[800:] = False  # pruned: 3700 holes under the watermark
         m._maintain_decide(4500, 800, m.time)
         assert int(m.surfels.count) == 800 and not m._opt_cache_map
@@ -248,10 +243,10 @@ def test_prefix_round_across_a_compaction_and_a_move_down():
         kf, _ = _keyframe()
         m._opt_cache_map[kf.uid] = tmapper.rt.Binning(*(t.clone() for t in m._binning(kf)))
         losses = [_step(m, geo, m._opt_cache_map[kf.uid])]
-        m._slot_counts.append((m.time, tmapper.HostReadback(m.surfels.count)))
+        m.ladder.observe(m.time, m.surfels.count)
         m.time += m.count_lag
-        m._update_opt_slots()
-        rungs.append(m.opt_slots)
+        m.fit_capacity()
+        rungs.append(m.ladder.opt_slots)
         if kf.uid not in m._opt_cache_map:
             m._opt_cache_map[kf.uid] = tmapper.rt.Binning(*(t.clone() for t in m._binning(kf)))
         losses += [_step(m, geo, m._opt_cache_map[kf.uid]) for _ in range(2)]
@@ -266,26 +261,23 @@ def test_prefix_round_across_a_compaction_and_a_move_down():
 
 def test_work_rung_bound_survives_a_deferred_maintenance():
     """(f) A deferred maintenance (prune at frame 6, decided `count_lag` + 1
-    frames later) sets the ladder's known count back to frame 6's and drops
-    the readbacks after it. The work rung bounds the watermark from count
-    readbacks of its own, so at a constant watermark of 1200 it stays at
-    2048 (1200 + 2 x 409 spawns); the ladder's count would have read
-    1200 + 4 x 409 at frame 10 and moved it to 4096 and back."""
+    frames later) sets the ladder's known count back to frame 6's and cuts
+    the readbacks after it from that count. The work rung bounds the
+    watermark from every readback of the stream, so at a constant
+    watermark of 1200 it stays at 2048 (1200 + 2 x 409 spawns); the
+    ladder's count would have read 1200 + 4 x 409 at frame 10 and moved it
+    to 4096 and back."""
     m = _mapper()
     rungs = []
     for f in range(5, 12):
         m.time = f
-        m._consume_counts()
-        m._update_opt_slots()
-        rungs.append(m.opt_slots)
-        count = tmapper.HostReadback(m.surfels.count)
-        m._count_pending.append((f, count))
-        m._slot_counts.append((f, count))
-        if m._maint_pending is not None:
-            m._maintain_finish()
+        m.fit_capacity()
+        rungs.append(m.ladder.opt_slots)
+        m.ladder.observe(f, m.surfels.count)
+        m._maintain_finish()
         if f == 6:
             m.maintain_map(defer=True)
-    assert m._known_time == 6 and int(m.surfels.count) == COUNT
+    assert m.ladder.known_time == 6 and int(m.surfels.count) == COUNT
     assert rungs == [2048] * 7, rungs
 
 
@@ -314,17 +306,15 @@ def _system(tmp_path, held: bool, device: str = "cpu"):
     )
     ef = EGGFusion(cfg, device=device, graphs=True)
     m = ef.mapper
-    m._ladder = [2048, 3072, 4096, 6144, 8192, 16384]
-    if not held:
-        m.surfels = tsf.SurfelMap.empty(
-            m.scfg._replace(capacity=m._bucket(m.mcfg.spawn_cap_init + m._spawn_margin)), device=device)
-    m.opt_slots = m._work_rung()
+    m.ladder.rungs = [2048, 3072, 4096, 6144, 8192, 16384]
+    m.adopt(m.surfels if held else tsf.SurfelMap.empty(m.scfg._replace(capacity=m.ladder.start()), device=device),
+            0)
     ef.dataset = load_dataset(cfg, ef.device)
     steps = []
     opt = m._opt
 
     def spy(*args, **kw):
-        steps.append((m.opt_slots, m.surfels.count.clone(), m.surfels.capacity))
+        steps.append((m.ladder.opt_slots, m.surfels.count.clone(), m.surfels.capacity))
         return opt(*args, **kw)
 
     m._opt = spy

@@ -27,7 +27,8 @@ import torch
 from eggfusion_tpu_torch.convert import surfel_map_from_numpy
 from eggfusion_tpu_torch.core import surfels as tsf
 from eggfusion_tpu_torch.core.frame import Frame
-from eggfusion_tpu_torch.core.mapper import RENDER_COUNTS, capacity_ladder
+from eggfusion_tpu_torch.core.capacity import capacity_ladder
+from eggfusion_tpu_torch.core.mapper import RENDER_COUNTS
 from eggfusion_tpu_torch.geometry.camera import CameraIntrinsics
 from eggfusion_tpu_torch.main import build_frame
 from eggfusion_tpu_torch.ops import raster_tile as rt
@@ -278,7 +279,7 @@ def test_ladder_last_rung_off_the_grid_grows_and_shrinks(tmp_path):
     ds = port.HostDataset(stream, cfg)
     ef.dataset = ds
     m = ef.mapper
-    assert m._ladder == [32768, 49152, 50000]
+    assert m.ladder.rungs == [32768, 49152, 50000]
     # after frame 0 the map moves to 49152 and fills to a watermark that
     # leaves too little spawn room
     ef.reconstruct(build_frame(ds, 0, False, "cpu", nlevel=ef.nlevel_frame, programs=ef.programs))
@@ -290,10 +291,9 @@ def test_ladder_last_rung_off_the_grid_grows_and_shrinks(tmp_path):
         if f != "count":
             getattr(s, f)[..., n0:49152 - 100] = getattr(filler, f)
     s.count.fill_(49152 - 100)
-    m._known_count, m._known_time = 49152 - 100, m.time - 1
-    m._count_pending.clear()
+    m.ladder.maintained(49152 - 100, m.time - 1, m.time, m.surfels.capacity, immediate=False)
     before = {f: getattr(s, f)[..., :49152 - 100].clone() for f in ("xyz", "rotation", "scaling", "opacity")}
-    m._ensure_capacity()
+    m.fit_capacity()
     assert m.surfels.capacity == 50000
     for f, t in before.items():
         assert same_bits(getattr(m.surfels, f)[..., :49152 - 100], t), f
